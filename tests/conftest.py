@@ -8,6 +8,11 @@ import pytest
 # --xla_force_host_platform_device_count themselves.
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card; skipped where there is none")
+
+
 @pytest.fixture
 def tmp_ckpt_dir(tmp_path):
     return str(tmp_path / "ckpt")
