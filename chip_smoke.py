@@ -8,27 +8,46 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
   1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
                with nvcc (sm_90a); print the build time and the card's name
                and power limit (nvidia-smi).
-  2. kernels — every kernel of the save/restore path against its plain
-               PyTorch version on the card, bit for bit, at main-path shapes
-               (a 256 MiB slice of the ``mlp/wd`` moment, the bf16 ``embed``)
-               and at edge cases (ragged last chunk, odd bf16 lane count,
-               all-zero rows, exact .5 quotients); CUDA-event times beside the
-               bytes-moved bound at 3.35 TB/s and the plain version's time.
-  3. main path — the full-width qwen2.5-3b train state (44 tensors, 28.74
-               GiB; random values from a seeded torch.Generator on the card)
-               through ``CheckpointManager``: (A) a quantized async save
+  2. kernels — every kernel against its plain PyTorch version on the card,
+               bit for bit, at main-path shapes (a 256 MiB slice of the
+               ``mlp/wd`` moment, the bf16 ``embed``; the RG-LRU scan forward
+               and reverse at (8, 255, 2560)) and at edge cases (ragged last
+               chunk, odd bf16 lane count, all-zero rows, exact .5 quotients;
+               S=1, R=1, R=2561, S=300, the 0.999^t carry); CUDA-event times
+               beside the bytes-moved bound at 3.35 TB/s and the plain
+               version's time.
+  3. checkpoint path — the full-width qwen2.5-3b train state (44 tensors;
+               depth cut to 4 of 36 layers, since the machine takes 45 GiB of
+               disk writes per call and phase 4 needs 29 of them; random values
+               from a seeded torch.Generator on the card) through
+               ``CheckpointManager``: (A) a quantized async save
                (the embedding mutated in place right after
                ``wait_snapshotted()``) + restore,
                (B) a delta chain — step 1, a contiguous 1% change of a few
                tensors, step 2, restore of step 2. Restored bytes are checked
                (unquantized: bit-exact; quantized: equal to the plain
                dequantize(quantize(x)) on the card), step 2's written bytes
-               are held to the dirty chunks plus the lean blob, and every
-               kernel's launch count over (A) and (B) must be above 0.
+               are held to the dirty chunks plus the lean blob, and each of
+               the four checkpoint kernels must be launched in (A) + (B).
+  4. training path — full-width, full-depth recurrentgemma-2b (26 layers, no
+               cut; weights from a seeded torch.Generator) through the port's
+               ``Trainer`` at batch 8 x 255 tokens: run 1 trains 3 steps with
+               an async checkpoint at step 2 (keep=1) — step 3 updates the
+               state in place right after ``wait_snapshotted()`` — and every
+               leaf is digested with the fingerprint kernel as the save is
+               called; run 2, a fresh ``Trainer`` on the same directory, must
+               resume at step 2 with every digest equal and train 2 more
+               steps. One checkpoint of 28.94 GB: two would pass the machine's
+               45 GiB of disk writes per call. Every loss must be finite and
+               the RG-LRU kernel must be launched.
+     4b. the same stack on a narrow float32 config: two train steps on the
+               card against two on the CPU (plain path) from one set of
+               weights and batches.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON, and the one before that the nvidia-smi line. The run
-needs one card and the repository's ``src/`` beside this file.
+needs one card, the repository's ``src/`` beside this file, and room for one
+~29 GB checkpoint under ``build/``.
 """
 
 from __future__ import annotations
@@ -56,7 +75,19 @@ KERNELS = {
     "quantize_fingerprint_blocks": (
         "src/repro_torch/kernels/csrc/fingerprint.cu",
         "src/repro/kernels/fingerprint.py:296"),
+    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru.cu",
+                   "src/repro/kernels/rglru.py:43"),
 }
+# the kernels each main path must launch
+CHECKPOINT_KERNELS = ("quantize_blocks", "dequantize_blocks",
+                      "fingerprint_chunks", "quantize_fingerprint_blocks")
+TRAINING_KERNELS = ("rglru_scan",)
+TRAIN_SHAPE = (8, 255, 2560)       # (batch, tokens, lru_dim) of phase 4
+# The chip machine takes at most 45 GiB of disk writes per call, deleted
+# files included. Phase 4 writes one full recurrentgemma-2b checkpoint
+# (28.94 GB), so phase 3 runs qwen2.5-3b at a cut depth: every width kept,
+# 4 of its 36 stacked layers (~2.5 GB per save, two saves, a 1 GiB probe).
+CHECKPOINT_LAYERS = 4
 
 
 def log(msg: str) -> None:
@@ -271,6 +302,62 @@ def edge_cases(dev, gen) -> None:
         fail("quant_fingerprint digests differ from the plain versions")
 
 
+def check_rglru(results: dict) -> None:
+    """B5 forward and reverse against the plain loop, bit for bit, at the
+    training path's shape and at edge cases; the 0.999^t carry."""
+    import torch
+    from repro_torch.kernels import rglru as rk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    def inputs(shape):
+        a = torch.rand(shape, device=dev, generator=gen) * 0.3 + 0.69
+        b = torch.randn(shape, device=dev, generator=gen) * 0.1
+        return a, b
+
+    a, b = inputs(TRAIN_SHAPE)
+    err = 0.0
+    for reverse in (False, True):
+        got = rk.linear_scan(a, b, reverse=reverse)
+        torch.cuda.synchronize()
+        err = max(err, require_equal(f"rglru_scan reverse={reverse}", got,
+                                     rk.linear_scan_plain(a, b,
+                                                          reverse=reverse)))
+    # each input read once, the output written once
+    nbytes = 3 * a.numel() * 4
+    # forward, reverse, forward again: the first timing of a run can catch
+    # the card's clocks still ramping; both forward timings are kept
+    first_ms = cuda_ms(lambda: rk.linear_scan(a, b), 100, 20)
+    reverse_ms = cuda_ms(lambda: rk.linear_scan(a, b, reverse=True), 100, 20)
+    results["rglru_scan"] = dict(
+        max_abs_err=err, first_ms=first_ms, reverse_ms=reverse_ms,
+        ms=cuda_ms(lambda: rk.linear_scan(a, b), 100, 20),
+        plain_ms=cuda_ms(lambda: rk.linear_scan_plain(a, b), 3, 1),
+        reverse_plain_ms=cuda_ms(
+            lambda: rk.linear_scan_plain(a, b, reverse=True), 3, 1),
+        bound_ms=bound_ms(nbytes), library_ms=None,
+        shape=f"a, b {TRAIN_SHAPE} f32")
+    for shape in ((4, 1, 2560), (8, 255, 1), (2, 255, 2561), (2, 300, 2560)):
+        a, b = inputs(shape)
+        for reverse in (False, True):
+            require_equal(f"rglru_scan {shape} reverse={reverse}",
+                          rk.linear_scan(a, b, reverse=reverse),
+                          rk.linear_scan_plain(a, b, reverse=reverse))
+    a = torch.full((1, 300, 128), 0.999, device=dev)
+    b = torch.zeros_like(a)
+    b[:, 0] = 1.0
+    h = rk.linear_scan(a, b)
+    require_equal("rglru_scan carry", h, rk.linear_scan_plain(a, b))
+    want = 0.999 ** torch.arange(300, dtype=torch.float64, device=dev)
+    carry_err = float(((h[0, :, 0].double() - want) / want).abs().max())
+    if carry_err > 1e-4:    # f32 rounding of 300 multiplies stays below
+        fail(f"rglru_scan carry: h_t differs from 0.999^t by {carry_err}")
+    del a, b, h
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ phase 3
 def state_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors.values())
@@ -345,7 +432,7 @@ def dirty_bound(state: dict, changed: dict, quant: set, blob_nbytes: int
     return nbytes + blob_nbytes, chunks
 
 
-def storage_probe(root: str, nbytes: int = 4 << 30) -> dict:
+def storage_probe(root: str, nbytes: int = 1 << 30) -> dict:
     """The storage rate the main path runs against: one ``nbytes`` host
     buffer written and read back through the same engine and settings
     (aggregated, O_DIRECT), with no device work at all."""
@@ -394,7 +481,7 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_main_path(state: dict, root: str, probe_bytes: int = 4 << 30) -> dict:
+def run_main_path(state: dict, root: str, probe_bytes: int = 1 << 30) -> dict:
     """Drive ``state`` (a qwen2.5-3b-layout train state) through
     CheckpointManager on the device its tensors live on."""
     import torch
@@ -545,12 +632,261 @@ def run_main_path(state: dict, root: str, probe_bytes: int = 4 << 30) -> dict:
     del restored
     shutil.rmtree(dir_b, ignore_errors=True)
     log("(B) restored state checked")
-    out["launches"] = dict(_lib.LAUNCHES)
+    out["launches"] = {k: _lib.LAUNCHES[k] for k in CHECKPOINT_KERNELS}
     log(f"kernel launches over (A)+(B): {out['launches']}")
     for name, count in out["launches"].items():
         if count <= 0:
-            fail(f"kernel {name} was never launched on the main path")
+            fail(f"kernel {name} was never launched on the checkpoint path")
     return out
+
+
+# ------------------------------------------------------------ phase 4
+def finite_losses(out: dict, steps: list[int]) -> list[float]:
+    import math
+    got = [m["step"] for m in out["metrics"]]
+    if got != steps:
+        fail(f"trainer logged steps {got}, expected {steps}")
+    losses = [m["loss"] for m in out["metrics"]]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss: {losses}")
+    return losses
+
+
+def digests(state: dict) -> dict:
+    """key -> fp128 digest table (on the host) of every tensor leaf."""
+    from repro_torch.kernels import fingerprint as fpk
+    return {k: fpk.fingerprint_chunks(t.contiguous(), CHUNK).cpu()
+            for k, t in flat_leaves(state).items()}
+
+
+def log_steps(tag: str, out: dict, tokens: int) -> list[dict]:
+    rows = []
+    for m in out["metrics"]:
+        rows.append(dict(step=m["step"], seconds=m["seconds"],
+                         tokens_per_s=tokens / m["seconds"], loss=m["loss"],
+                         grad_norm=m["grad_norm"]))
+        log(f"  {tag} step {m['step']}: {m['seconds']:.3f} s, "
+            f"{tokens / m['seconds']:.0f} tokens/s, loss {m['loss']:.4f}, "
+            f"grad norm {m['grad_norm']:.4f}")
+    return rows
+
+
+KERNEL_GROUPS = (("rglru_scan", ("rglru_scan",)),
+                 ("matmul", ("nvjet", "gemm", "xmma", "cutlass", "cublas")),
+                 ("elementwise", ("elementwise",)),
+                 ("reduction", ("reduce",)))
+
+
+def device_profile(prof, wall_s: float, steps: int, top: int = 8) -> dict:
+    """Kernel time from a ``torch.profiler`` run (kernel events only, so no
+    time is counted twice): per group of kernels, the busiest kernels, and
+    the device's busy share of the profiled window's host wall (the
+    profiler adds host overhead, so the window is slower than a plain
+    step)."""
+    from torch.autograd import DeviceType
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    if not rows:
+        log("  torch.profiler recorded no kernel time: device busy share "
+            "not measured")
+        return {}
+    busy_ms = sum(r[1] for r in rows)
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for key, ms, _ in rows:
+        name = next((g for g, marks in KERNEL_GROUPS
+                     if any(m in key for m in marks)), "other")
+        groups[name] += ms
+    log(f"  run 2 profile ({steps} steps): kernels {busy_ms:.1f} ms "
+        f"({busy_ms / steps:.1f} ms per step) in {wall_s * 1e3:.1f} ms of "
+        f"profiled host wall ({100 * busy_ms / (wall_s * 1e3):.1f}% busy); "
+        + ", ".join(f"{g} {ms:.1f} ms ({100 * ms / busy_ms:.1f}%)"
+                    for g, ms in groups.items()))
+    for key, ms, n in rows[:top]:
+        log(f"    {ms:9.2f} ms  {n:6d} x  {key[:90]}")
+    return dict(kernel_ms=busy_ms, wall_ms=wall_s * 1e3, steps=steps,
+                groups_ms=groups,
+                top=[dict(name=k, ms=ms, count=n) for k, ms, n in rows[:top]])
+
+
+def run_training(root: str) -> dict:
+    """Phase 4: full recurrentgemma-2b through the port's Trainer, with an
+    async checkpoint followed by an in-place step, and a resume in a fresh
+    Trainer."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import trace
+    from repro_torch.kernels import _lib
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("recurrentgemma-2b")
+    layout = flat_leaves(init_train_state(cfg, device="meta"))
+    total = state_bytes(layout)
+    B, S = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
+    log(f"training path: {cfg.name}, {cfg.num_layers} layers (no cut), "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}; train state "
+        f"{len(layout)} tensors, {total} B ({total / 2**30:.2f} GiB); batch "
+        f"{B} x {S} tokens")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    if free < total + (2 << 30):
+        fail(f"{root}: {free} B free, the run needs room for a checkpoint "
+             f"of {total} B")
+
+    def trainer(steps, ckpt_every):
+        return Trainer(cfg, TrainerConfig(
+            steps=steps, ckpt_every=ckpt_every, ckpt_dir=root,
+            async_ckpt=True, keep=1, log_every=1, seed=0), device="cuda")
+
+    out: dict = {"state_bytes": total, "tensors": len(layout)}
+    trace.enable()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    # run 1: 3 steps, an async checkpoint at step 2, then step 3 in place;
+    # the state is digested on the card as the save is called
+    t1 = trainer(3, 2)
+    saved: dict = {}
+    save = t1.ckpt.save
+
+    def digesting_save(step, state):
+        saved[step] = digests(state["train"])
+        return save(step, state)
+
+    t1.ckpt.save = digesting_save
+    try:
+        r1 = t1.run()
+    finally:
+        t1.close()
+    finite_losses(r1, [0, 1, 2])
+    steps1 = log_steps("run 1", r1, B * S)
+    saves = [dict(step=m.step, blocking_s=m.blocking_seconds,
+                  wall_s=m.end_to_end_seconds, total_bytes=m.total_bytes,
+                  written_bytes=m.written_bytes, staging_copy_s=m.d2h_seconds,
+                  flush_s=m.flush_seconds, commit_s=m.commit_seconds)
+             for m in t1.save_log]
+    for sv in saves:
+        log(f"  async save of step {sv['step']}: blocking "
+            f"{sv['blocking_s']:.3f} s, wall {sv['wall_s']:.3f} s "
+            f"({total / sv['wall_s'] / 1e9:.3f} GB/s of state), written "
+            f"{sv['written_bytes']} B")
+    log(f"  run 1: wall {r1['wall_seconds']:.3f} s, checkpoint stall "
+        f"{r1['ckpt_blocking_seconds']:.3f} s (save calls, this script's "
+        f"digest pass included; SaveMetrics blocking "
+        f"{r1['ckpt_blocking_reported_s']:.3f} s) of which wait_snapshotted()"
+        f" {r1['ckpt_snapshot_wait_seconds']:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    out["run1"] = dict(steps=steps1, saves=saves,
+                       wall_s=r1["wall_seconds"],
+                       ckpt_blocking_s=r1["ckpt_blocking_seconds"],
+                       snapshot_wait_s=r1["ckpt_snapshot_wait_seconds"],
+                       peak_device_bytes=torch.cuda.max_memory_allocated(),
+                       save_stall=stall("save"))
+    del r1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # run 2: a fresh Trainer resumes at step 2 and trains 2 more steps (it
+    # checkpoints every 5, so it writes nothing more)
+    t2 = trainer(4, 5)
+    try:
+        state, start = t2.initial_state()
+        if start != 2 or list(saved) != [2]:
+            fail(f"run 2 resumed at step {start}; run 1 saved {list(saved)}")
+        got, want = digests(state), saved[2]
+        if got.keys() != want.keys():
+            fail("restored state has other leaves than the saved one")
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        if bad:
+            fail(f"{len(bad)} restored leaves differ from the state run 1 "
+                 f"saved, e.g. {bad[:3]}")
+        wall = t2.restore_attr["restore_seconds"]
+        log(f"  run 2 restored step 2 in {wall:.3f} s ({total / wall / 1e9:.3f}"
+            f" GB/s of state); {len(want)} leaf digests equal the saved "
+            f"state's (step 3 had updated it in place)")
+        restore = dict(t2.restore_attr, stall=stall("restore"))
+        # run 2 saves nothing: profile its two steps for the device's view
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            r2 = t2.run((state, start))
+    finally:
+        t2.close()
+    del state
+    finite_losses(r2, [2, 3])
+    # the resumed step 2 sees run 1's step-2 state and batch
+    l1 = out["run1"]["steps"][2]["loss"]
+    l2 = r2["metrics"][0]["loss"]
+    if abs(l2 - l1) > 1e-4 * abs(l1):
+        fail(f"resumed step 2 loss {l2} differs from run 1's {l1}")
+    out["launches"] = {k: _lib.LAUNCHES[k] for k in TRAINING_KERNELS}
+    trace.disable()
+    out["run2"] = dict(steps=log_steps("run 2", r2, B * S), restore=restore,
+                       wall_s=r2["wall_seconds"],
+                       peak_device_bytes=torch.cuda.max_memory_allocated(),
+                       profile=device_profile(prof, r2["wall_seconds"], 2))
+    del r2
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    out["train_steps"] = 5
+    log(f"kernel launches over runs 1 and 2 (5 train steps): "
+        f"{out['launches']} ({out['launches']['rglru_scan'] / 5:g} "
+        f"rglru_scan per step)")
+    for name, count in out["launches"].items():
+        if count <= 0:
+            fail(f"kernel {name} was never launched on the training path")
+    return out
+
+
+def cpu_vs_card() -> dict:
+    """Phase 4b: two train steps of a narrow float32 recurrentgemma on the
+    card and on the CPU from one set of weights and batches. Tolerances:
+    loss rtol 1e-4 (cuBLAS and the CPU sum in other orders); params within
+    5e-5 + 1e-4 relative (a few learning-rate-sized AdamW steps)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.serialization import tree_map_with_path
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # full float32 matmuls
+    cfg = get_config("recurrentgemma-2b").replace(
+        dtype="float32", num_layers=3, block_pattern=("rglru", "rglru",
+                                                      "attn_local"),
+        d_model=128, num_heads=2, num_kv_heads=1, head_dim=64, d_ff=256,
+        lru_dim=200, vocab_size=512, sliding_window=16)
+    cpu_state = init_train_state(cfg, seed=0, device="cpu")
+    states = {"cuda": tree_map_with_path(lambda _p, t: t.cuda(), cpu_state),
+              "cpu": cpu_state}
+    data = SyntheticPipeline(DataConfig(cfg.vocab_size, 64, 2, seed=0))
+    losses: dict = {}
+    for dev, state in states.items():
+        step = make_train_step(cfg, AdamWConfig(warmup_steps=1))
+        for s in range(2):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in data.batch_at(s).items()}
+            state, m = step(state, batch)
+            losses.setdefault(dev, []).append(float(m["loss"]))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["cuda"], losses["cpu"]))
+    if loss_err > 1e-4:
+        fail(f"card vs CPU losses {losses}")
+    got = flat_leaves(states["cuda"]["params"])
+    param_err = 0.0
+    for k, want in flat_leaves(states["cpu"]["params"]).items():
+        diff = (got[k].cpu().double() - want.double()).abs()
+        param_err = max(param_err, float(diff.max()))
+        if bool((diff > 5e-5 + 1e-4 * want.double().abs()).any()):
+            fail(f"card vs CPU params differ at {k}: max {float(diff.max())}")
+    log(f"card vs CPU, narrow float32, 2 steps: losses {losses['cuda']} vs "
+        f"{losses['cpu']} (max rel {loss_err:.2e}), params max abs diff "
+        f"{param_err:.2e}")
+    return dict(losses=losses, loss_rel_err=loss_err,
+                param_max_abs_err=param_err)
 
 
 def main(argv=None) -> int:
@@ -582,30 +918,47 @@ def main(argv=None) -> int:
     # phase 2: kernels against their plain versions (tolerance: bit-exact)
     results: dict = {}
     check_kernels(results)
+    check_rglru(results)
     for name, r in results.items():
         log(f"kernel {name} [{r['shape']}]: {r['ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms (bytes), plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']}, max abs err {r['max_abs_err']} "
             f"(bit-exact required)")
+    r = results["rglru_scan"]
+    log(f"kernel rglru_scan reverse: {r['reverse_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms, plain {r['reverse_plain_ms']:.4f} ms; "
+        f"forward timed before the reverse: {r['first_ms']:.4f} ms")
 
-    # phase 3: main path, full width and full depth
+    # phase 3: checkpoint path, full width and full depth
     from repro_torch.configs import make_train_state, train_state_inventory
     state = make_train_state(train_state_inventory("qwen2.5-3b"),
-                             device="cuda", seed=0)
+                             device="cuda", seed=0, layers=CHECKPOINT_LAYERS)
     torch.cuda.synchronize()
-    log("main path: qwen2.5-3b train state, 36 stacked layers, no cut")
+    log(f"checkpoint path: qwen2.5-3b train state, depth cut to "
+        f"{CHECKPOINT_LAYERS} of 36 stacked layers (every width kept)")
     root = os.path.join(HERE, "build", "smoke_ckpt")
+    t0 = time.perf_counter()
     try:
         main_path = run_main_path(state, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+    log(f"checkpoint path: {time.perf_counter() - t0:.1f} s")
 
+    # phase 4: training path, full width and full depth
+    t0 = time.perf_counter()
+    training = run_training(os.path.join(HERE, "build", "smoke_train"))
+    log(f"training path: {time.perf_counter() - t0:.1f} s")
+    training["cpu_vs_card"] = cpu_vs_card()
+
+    launches = dict(main_path["launches"], **training["launches"])
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=main_path["launches"][name],
+            launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by="bytes",
             library_ms=r["library_ms"]))
@@ -613,8 +966,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump(dict(card=smi, kernels=results, main_path=main_path),
-                      f, indent=1)
+            json.dump(dict(card=smi, kernels=results, main_path=main_path,
+                           training=training), f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,8 @@
-"""Train-state inventories of the models the port checkpoints.
+"""Architecture registry and train-state inventories.
+
+``get_config(id)`` returns the full-size ``ModelConfig`` of an architecture
+(``--arch <id>``); the config modules beside this file are carried from the
+JAX package as data.
 
 An inventory lists every leaf of a model's train state (key, shape, dtype)
 exactly as the JAX package lays it out: ``params/...`` (bf16 with f32 norm
@@ -10,12 +14,37 @@ pinned by a test; this package reads them without JAX.
 
 from __future__ import annotations
 
+import importlib
 import json
 from pathlib import Path
 
 import torch
 
 from ..core.serialization import torch_dtype
+from ..models.config import ModelConfig
+
+_MODULES = {
+    "musicgen-large": "musicgen_large",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "stablelm-3b": "stablelm_3b",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "qwen3-32b": "qwen3_32b",
+    "gemma2-9b": "gemma2_9b",
+    "internvl2-26b": "internvl2_26b",
+    "xlstm-350m": "xlstm_350m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {list(_MODULES)}")
+    mod = importlib.import_module(f"{__name__}.{_MODULES[arch_id]}")
+    return mod.CONFIG
+
 
 _DIR = Path(__file__).resolve().parent
 INVENTORIES = {"qwen2.5-3b": "qwen2_5_3b_train_state.json"}

@@ -22,7 +22,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("quantize.cu", "fingerprint.cu")
+SOURCES = ("quantize.cu", "fingerprint.cu", "rglru.cu")
 # <checkout>/build (listed in .gitignore): src/repro_torch/kernels -> root
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per kernel wrapper; each wrapper adds one where it launches
 LAUNCHES = {"quantize_blocks": 0, "dequantize_blocks": 0,
-            "fingerprint_chunks": 0, "quantize_fingerprint_blocks": 0}
+            "fingerprint_chunks": 0, "quantize_fingerprint_blocks": 0,
+            "rglru_scan": 0}
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
@@ -38,6 +39,7 @@ _SIGNATURES = {
     "rt_dequantize_blocks": (_P, _P, _I64, _I32, _P, _P),
     "rt_fingerprint_chunks": (_P, _I64, _I64, _P, _P),
     "rt_quant_fingerprint_blocks": (_P, _I64, _I64, _I64, _P, _P, _P, _P),
+    "rt_rglru_scan": (_P, _P, _P, _I64, _I64, _I64, _I32, _P),
 }
 
 _lib = None

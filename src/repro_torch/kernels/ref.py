@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of every checkpoint kernel (the ground truth).
+"""Plain PyTorch versions of every kernel (the ground truth).
 
 Counterpart of ``repro/kernels/ref.py``: the same functions on torch
 tensors, on any device, with the same bits. The kernel modules' CPU paths
@@ -86,4 +86,44 @@ def lanes_of(data: torch.Tensor, chunk_bytes: int):
     if nc:
         lens[-1] = n - (nc - 1) * chunk_bytes
     return lanes, lens
+
+
+def _scan_dtype(*ts: torch.Tensor) -> torch.dtype:
+    """float32, or float64 when an input is (gradcheck runs in float64)."""
+    return torch.float64 if any(t.dtype == torch.float64 for t in ts) \
+        else torch.float32
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """First-order linear recurrence over axis 1 of (B, S, R):
+    h_t = a_t * h_{t-1} + b_t, h_{-1} = 0, in float32.
+
+    A loop over t with the product and the sum rounded separately — the
+    CUDA kernel's arithmetic, step for step, so the two agree bit for bit.
+    (The JAX package's oracle is an associative scan; it agrees to the
+    reference tolerance, not bitwise.)"""
+    dt = _scan_dtype(a, b)
+    a, b = a.to(dt), b.to(dt)
+    out = torch.empty_like(b)
+    h = torch.zeros_like(b[:, 0])
+    for t in range(b.shape[1]):
+        h = torch.add(torch.mul(a[:, t], h), b[:, t])
+        out[:, t] = h
+    return out
+
+
+def rglru_scan_reverse_ref(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The reverse recurrence g_t = a_{t+1} * g_{t+1} + d_t, g_S = 0 (with
+    a_S = 0): the gradient of ``rglru_scan_ref`` w.r.t. b when d = dL/dh.
+    Same step-for-step arithmetic as the kernel's reverse direction."""
+    dt = _scan_dtype(a, d)
+    a, d = a.to(dt), d.to(dt)
+    out = torch.empty_like(d)
+    g = torch.zeros_like(d[:, 0])
+    coef = torch.zeros_like(d[:, 0])
+    for t in range(d.shape[1] - 1, -1, -1):
+        g = torch.add(torch.mul(coef, g), d[:, t])
+        out[:, t] = g
+        coef = a[:, t]
+    return out
 

@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA kernels against their plain versions, and
-CUDA-resident saves against CPU-resident ones. Marked ``gpu``; each test
+"""The port on the card: the CUDA kernels against their plain versions,
+CUDA-resident saves against CPU-resident ones, and narrow train steps on the
+card against the same steps on the CPU. Marked ``gpu``; each test
 skips where there is no card (decided at run time). This file imports no
 JAX, so it runs as it is on a machine that has only PyTorch:
 
@@ -136,6 +137,93 @@ def test_delta_plan_fingerprints_on_card_and_gathers_into_staging(
     staging = HostStaging()
     got = [bytes(p.resolve(staging)) for p in plan.puts]
     assert got == want
+
+
+@pytest.mark.parametrize("shape", [(8, 255, 2560), (2, 300, 2561),
+                                   (3, 1, 1)])
+def test_rglru_scan_matches_plain_both_directions(cuda, shape):
+    """B5 against its plain version, bit for bit: the main-path shape, an
+    odd width, and one step of one column."""
+    from repro_torch.kernels import rglru as rk
+    g = torch.Generator(device=cuda).manual_seed(shape[1])
+    a = torch.rand(shape, device=cuda, generator=g) * 0.3 + 0.69
+    b = torch.randn(shape, device=cuda, generator=g) * 0.1
+    for reverse in (False, True):
+        got = rk.linear_scan(a, b, reverse=reverse)
+        torch.cuda.synchronize()
+        assert _same(got, rk.linear_scan_plain(a, b, reverse=reverse))
+    # carry: h_t = 0.999^t, within float32 rounding of t multiplies
+    a = torch.full((1, 300, 3), 0.999, device=cuda)
+    b = torch.zeros_like(a)
+    b[:, 0] = 1.0
+    h = rk.linear_scan(a, b)
+    want = 0.999 ** torch.arange(300, dtype=torch.float64, device=cuda)
+    torch.testing.assert_close(h[0, :, 1].double(), want, rtol=1e-4,
+                               atol=0)
+
+
+def test_rglru_scan_counts_launches_and_refuses_bad_input(cuda):
+    from repro_torch.kernels import rglru as rk
+    a = torch.rand((2, 5, 7), device=cuda)
+    _lib.reset_launches()
+    rk.linear_scan(a, a)
+    rk.linear_scan(a, a, reverse=True)
+    rk.linear_scan(a.cpu(), a.cpu())          # plain version: no launch
+    assert _lib.LAUNCHES["rglru_scan"] == 2
+    with pytest.raises(ValueError):
+        rk.linear_scan(a, a.cpu())
+    with pytest.raises(ValueError):
+        rk.linear_scan(a.transpose(0, 1), a.transpose(0, 1))
+    with pytest.raises(TypeError):
+        rk.linear_scan(a.double(), a.double())
+    assert _lib.LAUNCHES["rglru_scan"] == 2
+
+
+def test_narrow_train_steps_on_card_match_cpu(cuda):
+    """Two train steps of a narrow float32 recurrentgemma from one set of
+    weights and batches: cuBLAS and the B5 kernel (forward, remat
+    recompute and reverse) against the CPU's plain path. Tolerances: loss
+    rtol 1e-4; params within 5e-5 (a few learning-rate-sized AdamW steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.serialization import tree_map_with_path
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = get_config("recurrentgemma-2b").replace(dtype="float32", **NARROW)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_state = init_train_state(cfg, seed=0, device="cpu")
+    states = {"cuda": tree_map_with_path(lambda _p, t: t.to(cuda),
+                                         cpu_state),
+              "cpu": cpu_state}
+    data = SyntheticPipeline(DataConfig(512, 64, 2, seed=0))
+    losses = {}
+    _lib.reset_launches()
+    for dev, state in states.items():
+        step = make_train_step(cfg, AdamWConfig(warmup_steps=1))
+        for s in range(2):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in data.batch_at(s).items()}
+            state, m = step(state, batch)
+            losses.setdefault(dev, []).append(float(m["loss"]))
+    # per step: 2 RG-LRU blocks x (forward + remat recompute + reverse)
+    assert _lib.LAUNCHES["rglru_scan"] == 2 * 2 * 3
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    for (path, want), (_, have) in zip(_leaves(states["cpu"]["params"]),
+                                       _leaves(states["cuda"]["params"])):
+        torch.testing.assert_close(have.cpu(), want, rtol=1e-4, atol=5e-5,
+                                   msg=path)
+
+
+NARROW = dict(num_layers=3, block_pattern=("rglru", "rglru", "attn_local"),
+              d_model=128, num_heads=2, num_kv_heads=1, head_dim=64,
+              d_ff=256, lru_dim=200, vocab_size=512, sliding_window=16)
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
 
 
 def _state(device, seed=0):

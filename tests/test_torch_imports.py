@@ -113,9 +113,13 @@ def test_kernel_build_is_lazy():
         assert "build/" in f.read().split()
 
 
-@pytest.mark.parametrize("source", ["quantize.cu", "fingerprint.cu"])
+REPLACED = {"quantize.cu": "quantize.py", "fingerprint.cu": "fingerprint.py",
+            "rglru.cu": "rglru.py"}
+
+
+@pytest.mark.parametrize("source", list(REPLACED))
 def test_kernel_sources_name_what_they_replace(source):
     with open(os.path.join(PORT, "kernels", "csrc", source)) as f:
         text = f.read()
-    assert "Replaces repro/kernels/" in text
+    assert f"Replaces repro/kernels/{REPLACED[source]}" in text
     assert "Bound on the H100" in text or "Bound:" in text
