@@ -10,12 +10,15 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                and power limit (nvidia-smi).
   2. kernels — every kernel against its plain PyTorch version on the card,
                bit for bit, at main-path shapes (a 256 MiB slice of the
-               ``mlp/wd`` moment, the bf16 ``embed``; the RG-LRU scan forward
-               and reverse at (8, 255, 2560)) and at edge cases (ragged last
-               chunk, odd bf16 lane count, all-zero rows, exact .5 quotients;
-               S=1, R=1, R=2561, S=300, the 0.999^t carry); CUDA-event times
-               beside the bytes-moved bound at 3.35 TB/s and the plain
-               version's time.
+               ``mlp/wd`` moment, the bf16 ``embed``; the RG-LRU scan's
+               forward, reverse and fused backward at (8, 255, 2560), on the
+               bulk-copy path and on a misaligned copy that takes the 4-byte
+               path) and at edge cases (ragged last chunk, odd bf16 lane
+               count, all-zero rows, exact .5 quotients; S=1, R=1, R=2561,
+               S=300, S at and around the ring's stage edges, the 0.999^t
+               carry); CUDA-event times beside the bytes-moved bound at 3.35
+               TB/s and the plain version's time, and the unfused RG-LRU
+               backward as the fused one's yardstick.
   3. checkpoint path — the full-width qwen2.5-3b train state (44 tensors;
                depth cut to 4 of 36 layers, since the machine takes 45 GiB of
                disk writes per call and phase 4 needs 29 of them; random values
@@ -138,6 +141,30 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, warmup: int = 20) -> float:
+    """Device time of one ``fn`` call: the kernel time that
+    ``torch.profiler`` records over ``reps`` calls, summed over every kernel
+    a call launches, per call. Unlike ``cuda_ms`` it leaves out the gaps
+    between kernels, so it reads a kernel whose host-side launch takes
+    about as long as the kernel itself."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        fail("torch.profiler recorded no kernel time")
+    return us / reps / 1e3
 
 
 def bound_ms(nbytes: int) -> float:
@@ -302,9 +329,32 @@ def edge_cases(dev, gen) -> None:
         fail("quant_fingerprint digests differ from the plain versions")
 
 
+def misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes into its buffer: the
+    RG-LRU kernel must take its 4-byte cp.async path for it."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# edge shapes of B5: one step; one column; an odd width; S = 300; S below,
+# at k*T +- 1 of and on the ring's wraps (T = 32 steps a stage; 4 stages
+# forward and reverse, 3 in the fused backward); a narrow last column tile
+# on the bulk path (R = 2564)
+RGLRU_EDGES = ((4, 1, 2560), (8, 255, 1), (2, 255, 2561), (2, 300, 2560),
+               (2, 5, 2560), (2, 31, 2560), (2, 33, 2560), (2, 63, 2560),
+               (2, 65, 2560), (2, 97, 2564), (2, 129, 2560), (2, 257, 2560))
+
+
 def check_rglru(results: dict) -> None:
-    """B5 forward and reverse against the plain loop, bit for bit, at the
-    training path's shape and at edge cases; the 0.999^t carry."""
+    """B5's three modes (forward, g-only reverse, fused backward) against
+    their plain loops, bit for bit, at the training path's shape, at edge
+    shapes, on misaligned views (the 4-byte copy path) and with the 0.999^t
+    carry; CUDA-event times beside the bytes bounds, with the unfused
+    backward (the g-only reverse plus the three PyTorch passes that the
+    fused mode replaced) timed as its yardstick."""
     import torch
     from repro_torch.kernels import rglru as rk
 
@@ -315,41 +365,87 @@ def check_rglru(results: dict) -> None:
     def inputs(shape):
         a = torch.rand(shape, device=dev, generator=gen) * 0.3 + 0.69
         b = torch.randn(shape, device=dev, generator=gen) * 0.1
-        return a, b
+        dh = torch.randn(shape, device=dev, generator=gen)
+        return a, b, dh
 
-    a, b = inputs(TRAIN_SHAPE)
-    err = 0.0
-    for reverse in (False, True):
-        got = rk.linear_scan(a, b, reverse=reverse)
+    def check(tag, a, b, dh, want=None):
+        """Every mode on (a, b, dh) against the plain loops (or ``want``,
+        the plain outputs of equal data); returns them and the max error."""
+        h = rk.linear_scan(a, b)
+        g = rk.linear_scan(a, dh, reverse=True)
+        da, g2 = rk.linear_scan_grad(a, h, dh)
         torch.cuda.synchronize()
-        err = max(err, require_equal(f"rglru_scan reverse={reverse}", got,
-                                     rk.linear_scan_plain(a, b,
-                                                          reverse=reverse)))
-    # each input read once, the output written once
-    nbytes = 3 * a.numel() * 4
-    # forward, reverse, forward again: the first timing of a run can catch
-    # the card's clocks still ramping; both forward timings are kept
+        if want is None:
+            h_p = rk.linear_scan_plain(a, b)
+            want = (h_p, *rk.linear_scan_grad_plain(a, h_p, dh))
+        err = max(require_equal(f"rglru_scan forward {tag}", h, want[0]),
+                  require_equal(f"rglru_scan reverse {tag}", g, want[2]),
+                  require_equal(f"rglru_scan grad da {tag}", da, want[1]),
+                  require_equal(f"rglru_scan grad g {tag}", g2, want[2]))
+        return want, err
+
+    a, b, dh = inputs(TRAIN_SHAPE)
+    want, err = check(f"{TRAIN_SHAPE}", a, b, dh)
+    variant = rk.copy_variant(a, b)
+    if variant != "bulk":
+        fail(f"rglru_scan at {TRAIN_SHAPE} took the {variant} copy path")
+    h = want[0]
+    # a misaligned copy of the same data: the 4-byte cp.async variant
+    am, bm, hm, dhm = (misaligned(t) for t in (a, b, h, dh))
+    if rk.copy_variant(am, bm, hm, dhm) != "cp.async":
+        fail("a misaligned view did not take the 4-byte copy path")
+    check(f"{TRAIN_SHAPE} misaligned", am, bm, dhm, want)
+
+    def unfused():              # the backward before the fused mode
+        g = rk.linear_scan(a, dh, reverse=True)
+        h_prev = torch.zeros_like(h)
+        h_prev[:, 1:] = h[:, :-1]
+        return g * h_prev, g
+
+    # each input read once, each output written once
+    nbytes = a.numel() * 4
+    # forward first and last: the first timing of a run can catch the
+    # card's clocks still ramping; both forward timings are kept
     first_ms = cuda_ms(lambda: rk.linear_scan(a, b), 100, 20)
-    reverse_ms = cuda_ms(lambda: rk.linear_scan(a, b, reverse=True), 100, 20)
+    reverse_ms = cuda_ms(lambda: rk.linear_scan(a, dh, reverse=True), 100, 20)
+    grad_ms = cuda_ms(lambda: rk.linear_scan_grad(a, h, dh), 100, 20)
+    unfused_ms = cuda_ms(unfused, 100, 20)
+    cp_async_ms = dict(
+        forward=cuda_ms(lambda: rk.linear_scan(am, bm), 100, 20),
+        reverse=cuda_ms(lambda: rk.linear_scan(am, dhm, reverse=True),
+                        100, 20),
+        grad=cuda_ms(lambda: rk.linear_scan_grad(am, hm, dhm), 100, 20))
+    # the same calls' kernel time alone (profiler), without launch gaps
+    device = dict(
+        forward=device_ms(lambda: rk.linear_scan(a, b), 100),
+        reverse=device_ms(lambda: rk.linear_scan(a, dh, reverse=True), 100),
+        grad=device_ms(lambda: rk.linear_scan_grad(a, h, dh), 100),
+        unfused_grad=device_ms(unfused, 100),
+        cp_async_forward=device_ms(lambda: rk.linear_scan(am, bm), 100),
+        cp_async_grad=device_ms(lambda: rk.linear_scan_grad(am, hm, dhm),
+                                100))
     results["rglru_scan"] = dict(
         max_abs_err=err, first_ms=first_ms, reverse_ms=reverse_ms,
+        grad_ms=grad_ms, unfused_grad_ms=unfused_ms, cp_async_ms=cp_async_ms,
+        device_ms=device,
         ms=cuda_ms(lambda: rk.linear_scan(a, b), 100, 20),
         plain_ms=cuda_ms(lambda: rk.linear_scan_plain(a, b), 3, 1),
         reverse_plain_ms=cuda_ms(
-            lambda: rk.linear_scan_plain(a, b, reverse=True), 3, 1),
-        bound_ms=bound_ms(nbytes), library_ms=None,
+            lambda: rk.linear_scan_plain(a, dh, reverse=True), 3, 1),
+        grad_plain_ms=cuda_ms(lambda: rk.linear_scan_grad_plain(a, h, dh),
+                              3, 1),
+        bound_ms=bound_ms(3 * nbytes), grad_bound_ms=bound_ms(5 * nbytes),
+        library_ms=None, variant=variant,
         shape=f"a, b {TRAIN_SHAPE} f32")
-    for shape in ((4, 1, 2560), (8, 255, 1), (2, 255, 2561), (2, 300, 2560)):
-        a, b = inputs(shape)
-        for reverse in (False, True):
-            require_equal(f"rglru_scan {shape} reverse={reverse}",
-                          rk.linear_scan(a, b, reverse=reverse),
-                          rk.linear_scan_plain(a, b, reverse=reverse))
+    del a, b, dh, h, am, bm, hm, dhm, want
+    for shape in RGLRU_EDGES:
+        check(f"{shape}", *inputs(shape))
+    check("(2, 65, 2560) misaligned",
+          *(misaligned(t) for t in inputs((2, 65, 2560))))
     a = torch.full((1, 300, 128), 0.999, device=dev)
     b = torch.zeros_like(a)
     b[:, 0] = 1.0
-    h = rk.linear_scan(a, b)
-    require_equal("rglru_scan carry", h, rk.linear_scan_plain(a, b))
+    (h, _, _), _ = check("carry", a, b, torch.flip(b, (1,)))
     want = 0.999 ** torch.arange(300, dtype=torch.float64, device=dev)
     carry_err = float(((h[0, :, 0].double() - want) / want).abs().max())
     if carry_err > 1e-4:    # f32 rounding of 300 multiplies stays below
@@ -718,7 +814,7 @@ def run_training(root: str) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import trace
-    from repro_torch.kernels import _lib
+    from repro_torch.kernels import _lib, rglru as rk
     from repro_torch.train.steps import init_train_state
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -746,6 +842,7 @@ def run_training(root: str) -> dict:
     trace.enable()
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
+    rk.COPY_LAUNCHES.update({k: 0 for k in rk.COPY_LAUNCHES})
     # run 1: 3 steps, an async checkpoint at step 2, then step 3 in place;
     # the state is digested on the card as the save is called
     t1 = trainer(3, 2)
@@ -823,6 +920,7 @@ def run_training(root: str) -> dict:
     if abs(l2 - l1) > 1e-4 * abs(l1):
         fail(f"resumed step 2 loss {l2} differs from run 1's {l1}")
     out["launches"] = {k: _lib.LAUNCHES[k] for k in TRAINING_KERNELS}
+    out["rglru_copy_launches"] = dict(rk.COPY_LAUNCHES)
     trace.disable()
     out["run2"] = dict(steps=log_steps("run 2", r2, B * S), restore=restore,
                        wall_s=r2["wall_seconds"],
@@ -834,7 +932,8 @@ def run_training(root: str) -> dict:
     out["train_steps"] = 5
     log(f"kernel launches over runs 1 and 2 (5 train steps): "
         f"{out['launches']} ({out['launches']['rglru_scan'] / 5:g} "
-        f"rglru_scan per step)")
+        f"rglru_scan per step; by copy variant "
+        f"{out['rglru_copy_launches']})")
     for name, count in out["launches"].items():
         if count <= 0:
             fail(f"kernel {name} was never launched on the training path")
@@ -909,9 +1008,12 @@ def main(argv=None) -> int:
              else "already built from these sources")
     log(f"build: {time.perf_counter() - t0:.1f} s ({built}) -> "
         f"{_lib.library_path()}")
+    entry = "?"
     for line in _lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas " + line.strip())
+        if "entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
     smi = nvidia_smi()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -925,9 +1027,18 @@ def main(argv=None) -> int:
             f"library {r['library_ms']}, max abs err {r['max_abs_err']} "
             f"(bit-exact required)")
     r = results["rglru_scan"]
-    log(f"kernel rglru_scan reverse: {r['reverse_ms']:.4f} ms, bound "
+    log(f"kernel rglru_scan forward timed first: {r['first_ms']:.4f} ms; "
+        f"reverse (g only) {r['reverse_ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms, plain {r['reverse_plain_ms']:.4f} ms; "
-        f"forward timed before the reverse: {r['first_ms']:.4f} ms")
+        f"fused backward {r['grad_ms']:.4f} ms, bound "
+        f"{r['grad_bound_ms']:.4f} ms, plain {r['grad_plain_ms']:.4f} ms; "
+        f"unfused backward (reverse + zeros_like + shifted copy + mul) "
+        f"{r['unfused_grad_ms']:.4f} ms")
+    log(f"kernel rglru_scan copy variant at {TRAIN_SHAPE}: {r['variant']}; "
+        f"4-byte cp.async variant on a misaligned copy: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in r["cp_async_ms"].items()))
+    log("kernel rglru_scan device time per call (torch.profiler): " +
+        ", ".join(f"{k} {v:.4f} ms" for k, v in r["device_ms"].items()))
 
     # phase 3: checkpoint path, full width and full depth
     from repro_torch.configs import make_train_state, train_state_inventory

@@ -1,9 +1,10 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, at first use, and bound with
-``ctypes``: each C entry point launches on the stream it is given and
-returns ``cudaGetLastError()``. The library is named by a hash of the
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, at first use, and bound with ``ctypes``:
+each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``. The library is named by a hash of the
 sources, so an edited kernel is rebuilt and a stale one never loaded.
 
 Nothing here runs at import time — the CPU test suite imports every module
@@ -26,7 +27,7 @@ SOURCES = ("quantize.cu", "fingerprint.cu", "rglru.cu")
 # <checkout>/build (listed in .gitignore): src/repro_torch/kernels -> root
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # launches per kernel wrapper; each wrapper adds one where it launches
 LAUNCHES = {"quantize_blocks": 0, "dequantize_blocks": 0,
@@ -39,7 +40,7 @@ _SIGNATURES = {
     "rt_dequantize_blocks": (_P, _P, _I64, _I32, _P, _P),
     "rt_fingerprint_chunks": (_P, _I64, _I64, _P, _P),
     "rt_quant_fingerprint_blocks": (_P, _I64, _I64, _I64, _P, _P, _P, _P),
-    "rt_rglru_scan": (_P, _P, _P, _I64, _I64, _I64, _I32, _P),
+    "rt_rglru_scan": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P),
 }
 
 _lib = None
@@ -79,15 +80,30 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    objs = [tmp.with_suffix(f".{Path(s).stem}.o") for s in SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o),
+         str(CSRC / s)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for s, o in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for s, p, text in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc {s} failed ({p.returncode}):\n"
+                                   f"{text}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs)
     os.replace(tmp, out)
     return out
 

@@ -127,3 +127,27 @@ def rglru_scan_reverse_ref(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
         coef = a[:, t]
     return out
 
+
+
+def rglru_scan_grad_ref(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
+    """The backward of ``rglru_scan_ref`` from its output h and dh = dL/dh:
+    (da, g) with g = ``rglru_scan_reverse_ref(a, dh)`` (dL/db) and
+    da_t = g_t * h_{t-1}, h_{-1} = 0 (dL/da). The kernel's grad mode step
+    for step: walking t down, it forms da_{t+1} = g_{t+1} * h_t on reaching
+    row t, and da_0 = g_0 * 0 at the end."""
+    dt = _scan_dtype(a, h, dh)
+    a, h, dh = a.to(dt), h.to(dt), dh.to(dt)
+    out_g = torch.empty_like(dh)
+    out_da = torch.empty_like(dh)
+    g = torch.zeros_like(dh[:, 0])
+    coef = torch.zeros_like(dh[:, 0])
+    S = dh.shape[1]
+    for t in range(S - 1, -1, -1):
+        if t + 1 < S:
+            out_da[:, t + 1] = torch.mul(g, h[:, t])
+        g = torch.add(torch.mul(coef, g), dh[:, t])
+        out_g[:, t] = g
+        coef = a[:, t]
+    if S:
+        out_da[:, 0] = torch.mul(g, torch.zeros_like(g))
+    return out_da, out_g

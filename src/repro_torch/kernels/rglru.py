@@ -2,11 +2,12 @@
 
 Counterpart of ``repro/kernels/rglru.py`` (and of the associative scan in
 ``repro/models/layers.py``'s ``rglru_apply`` that the Pallas kernel replaces).
-``linear_scan`` runs the recurrence in either direction: on a CUDA tensor it
-launches the hand-written kernel of ``csrc/rglru.cu``; on a CPU tensor it runs
-the plain PyTorch versions of ``ref.py`` — the same arithmetic, bit for bit.
-``rglru_scan`` is the differentiable op the model calls: its backward is the
-same kernel run in reverse.
+``linear_scan`` runs the recurrence in either direction and
+``linear_scan_grad`` forms the whole backward (dL/da and dL/db) in one pass:
+on CUDA tensors each launches the hand-written kernel of ``csrc/rglru.cu``
+once; on CPU tensors they run the plain PyTorch versions of ``ref.py`` — the
+same arithmetic, bit for bit. ``rglru_scan`` is the differentiable op the
+model calls: its backward is one ``linear_scan_grad``.
 
 Shapes are (B, S, R) float32 of any size: the kernel needs no padding.
 """
@@ -16,6 +17,52 @@ from __future__ import annotations
 import torch
 
 from . import _lib, ref
+
+_MODES = {"forward": 0, "reverse": 1, "grad": 2}
+# launches of the kernel by copy variant (see ``copy_variant``); the
+# launch count of the wrapper is ``_lib.LAUNCHES["rglru_scan"]``
+COPY_LAUNCHES = {"bulk": 0, "cp.async": 0}
+
+
+def copy_variant(*inputs: torch.Tensor) -> str:
+    """How the kernel fills its shared-memory ring from ``inputs``:
+    ``"bulk"`` (TMA bulk copies) when every row segment starts 16-byte
+    aligned — R % 4 == 0 and every base pointer 16-byte aligned — else
+    ``"cp.async"`` (4 bytes a thread)."""
+    aligned = inputs[0].shape[-1] % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in inputs)
+    return "bulk" if aligned else "cp.async"
+
+
+def _check(*ts: torch.Tensor) -> None:
+    shape = ts[0].shape
+    if len(shape) != 3 or any(t.shape != shape for t in ts):
+        raise ValueError(f"expected equal (B, S, R) shapes, got "
+                         f"{[tuple(t.shape) for t in ts]}")
+
+
+def _launch(mode: str, a, b, h=None, da=None) -> torch.Tensor:
+    inputs = (a, b) if h is None else (a, b, h)
+    for t in inputs:
+        if t.device.type != "cuda":
+            raise ValueError(f"kernel needs CUDA tensors, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"kernel scans float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel needs contiguous tensors")
+        if t.device != a.device:
+            raise ValueError(f"inputs on {a.device} and {t.device}")
+    out = torch.empty_like(b)
+    variant = copy_variant(*inputs)
+    B, S, R = a.shape
+    _lib.LAUNCHES["rglru_scan"] += 1
+    COPY_LAUNCHES[variant] += 1
+    _lib.check(_lib.lib().rt_rglru_scan(
+        a.data_ptr(), b.data_ptr(), None if h is None else h.data_ptr(),
+        out.data_ptr(), None if da is None else da.data_ptr(), B, S, R,
+        _MODES[mode], int(variant == "bulk"), _lib.stream_of(a)),
+        "rglru_scan")
+    return out
 
 
 def linear_scan_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -33,32 +80,33 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, *,
     ``reverse=False``: h_t = a_t * h_{t-1} + b_t from t = 0 (h_{-1} = 0).
     ``reverse=True``: g_t = a_{t+1} * g_{t+1} + b_t from t = S-1 (g_S = 0) —
     with b = dL/dh this is dL/db of the forward scan."""
-    if a.shape != b.shape or a.dim() != 3:
-        raise ValueError(f"expected two equal (B, S, R) shapes, got "
-                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    _check(a, b)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return linear_scan_plain(a, b, reverse=reverse)
-    for t in (a, b):
-        if t.device.type != "cuda":
-            raise ValueError(f"kernel needs CUDA tensors, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel scans float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("kernel needs contiguous tensors")
-    if a.device != b.device:
-        raise ValueError(f"inputs on {a.device} and {b.device}")
-    out = torch.empty_like(b)
-    B, S, R = a.shape
-    _lib.LAUNCHES["rglru_scan"] += 1
-    _lib.check(_lib.lib().rt_rglru_scan(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), B, S, R, int(reverse),
-        _lib.stream_of(a)), "rglru_scan")
-    return out
+    return _launch("reverse" if reverse else "forward", a, b)
+
+
+def linear_scan_grad_plain(a: torch.Tensor, h: torch.Tensor,
+                           dh: torch.Tensor):
+    """Plain version of ``linear_scan_grad`` (any device)."""
+    return ref.rglru_scan_grad_ref(a, h, dh)
+
+
+def linear_scan_grad(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
+    """The backward of h = scan(a, b) from its output h and dh = dL/dh, in
+    one pass: returns (da, g) with g_t = a_{t+1} * g_{t+1} + dh_t
+    (g_S = 0), which is dL/db, and da_t = g_t * h_{t-1} (h_{-1} = 0)."""
+    _check(a, h, dh)
+    if all(t.device.type == "cpu" for t in (a, h, dh)):
+        return linear_scan_grad_plain(a, h, dh)
+    da = torch.empty_like(dh)
+    g = _launch("grad", a, dh, h, da)
+    return da, g
 
 
 class _RGLRUScan(torch.autograd.Function):
     """h = scan(a, b); dL/db = reverse scan of dL/dh, dL/da_t = dL/db_t *
-    h_{t-1} (h_{-1} = 0)."""
+    h_{t-1} (h_{-1} = 0) — one kernel launch."""
 
     @staticmethod
     def forward(ctx, a, b):
@@ -70,10 +118,7 @@ class _RGLRUScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         a, h = ctx.saved_tensors
-        g = linear_scan(a, dh.to(h.dtype).contiguous(), reverse=True)
-        h_prev = torch.zeros_like(h)
-        h_prev[:, 1:] = h[:, :-1]
-        return g * h_prev, g
+        return linear_scan_grad(a, h, dh.to(h.dtype).contiguous())
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -140,10 +140,13 @@ def test_delta_plan_fingerprints_on_card_and_gathers_into_staging(
 
 
 @pytest.mark.parametrize("shape", [(8, 255, 2560), (2, 300, 2561),
-                                   (3, 1, 1)])
+                                   (3, 1, 1), (2, 31, 2564), (2, 33, 2560),
+                                   (2, 129, 2560)])
 def test_rglru_scan_matches_plain_both_directions(cuda, shape):
     """B5 against its plain version, bit for bit: the main-path shape, an
-    odd width, and one step of one column."""
+    odd width, one step of one column, and S = T - 1, T + 1 and 4T + 1 for
+    the kernel's T = 32 steps per ring stage (R = 2564: a narrow last
+    column tile on the bulk-copy path)."""
     from repro_torch.kernels import rglru as rk
     g = torch.Generator(device=cuda).manual_seed(shape[1])
     a = torch.rand(shape, device=cuda, generator=g) * 0.3 + 0.69
@@ -160,6 +163,59 @@ def test_rglru_scan_matches_plain_both_directions(cuda, shape):
     want = 0.999 ** torch.arange(300, dtype=torch.float64, device=cuda)
     torch.testing.assert_close(h[0, :, 1].double(), want, rtol=1e-4,
                                atol=0)
+
+
+def _scan_inputs(cuda, shape, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.rand(shape, device=cuda, generator=g) * 0.3 + 0.69
+    b = torch.randn(shape, device=cuda, generator=g) * 0.1
+    dh = torch.randn(shape, device=cuda, generator=g)
+    return a, b, dh
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes into its buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("shape,misaligned", [
+    ((8, 255, 2560), False), ((2, 300, 2561), False), ((3, 1, 1), False),
+    ((2, 31, 2560), False), ((2, 33, 2560), False), ((2, 97, 2564), False),
+    ((2, 33, 2560), True)])
+def test_rglru_grad_matches_plain(cuda, shape, misaligned):
+    """The fused backward (g and da in one launch) against its plain
+    version, bit for bit: the main-path shape, an odd width, one column, S
+    = T - 1 and T + 1, the grad ring's wrap (3T + 1), and a misaligned view
+    that must take the 4-byte copy path."""
+    from repro_torch.kernels import rglru as rk
+    a, b, dh = _scan_inputs(cuda, shape, shape[1])
+    h = rk.linear_scan(a, b)
+    if misaligned:
+        a, h, dh = _misaligned(a), _misaligned(h), _misaligned(dh)
+        assert rk.copy_variant(a, dh, h) == "cp.async"
+    da, g = rk.linear_scan_grad(a, h, dh)
+    torch.cuda.synchronize()
+    want_da, want_g = rk.linear_scan_grad_plain(a, h, dh)
+    assert _same(g, want_g) and _same(da, want_da)
+    assert _same(g, rk.linear_scan(a, dh, reverse=True))
+
+
+def test_rglru_backward_is_one_launch(cuda):
+    """``_RGLRUScan.backward`` makes exactly one kernel launch, and its
+    gradients equal the plain fused backward's."""
+    from repro_torch.kernels import rglru as rk
+    a, b, dh = _scan_inputs(cuda, (2, 70, 200), 3)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    h = rk.rglru_scan(a, b)
+    _lib.reset_launches()
+    h.backward(dh)
+    assert _lib.LAUNCHES["rglru_scan"] == 1
+    want_da, want_g = rk.linear_scan_grad_plain(a.detach(), h.detach(), dh)
+    assert _same(a.grad, want_da) and _same(b.grad, want_g)
 
 
 def test_rglru_scan_counts_launches_and_refuses_bad_input(cuda):

@@ -114,3 +114,57 @@ def test_wrapper_refuses_mismatched_shapes():
         rk.linear_scan(torch.zeros(1, 2, 3), torch.zeros(1, 2, 4))
     with pytest.raises(ValueError):
         rk.linear_scan(torch.zeros(2, 3), torch.zeros(2, 3))
+
+
+@pytest.mark.parametrize("B,S,R", [(2, 37, 5), (1, 1, 3), (3, 64, 1),
+                                   (2, 1, 1), (2, 70, 33)])
+def test_grad_ref_equals_the_unfused_backward(B, S, R):
+    """``rglru_scan_grad_ref`` (the kernel's fused grad mode, step for
+    step) against the composition it replaces — the reverse scan, then
+    g * h_prev with h_prev the output shifted one step (h_{-1} = 0) — bit
+    for bit."""
+    a, dh = _inputs((B, S, R), 11 * S + R)
+    a, dh = torch.from_numpy(a), torch.from_numpy(dh)
+    h = rk.linear_scan(a, torch.from_numpy(_inputs((B, S, R), S)[1]))
+    da, g = rk.ref.rglru_scan_grad_ref(a, h, dh)
+    want_g = rk.ref.rglru_scan_reverse_ref(a, dh)
+    h_prev = torch.zeros_like(h)
+    h_prev[:, 1:] = h[:, :-1]
+    want_da = want_g * h_prev
+    for got, want in ((da, want_da), (g, want_g)):
+        assert got.dtype == want.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_backward_is_one_grad_pass(monkeypatch):
+    """The Function's backward is one ``linear_scan_grad`` (on the card, one
+    launch): no separate reverse scan."""
+    calls = []
+    real = rk.ref.rglru_scan_grad_ref
+    monkeypatch.setattr(rk.ref, "rglru_scan_grad_ref",
+                        lambda *t: calls.append(1) or real(*t))
+    monkeypatch.setattr(rk.ref, "rglru_scan_reverse_ref", None)
+    a, b = _inputs((2, 9, 4), 5)
+    ta = torch.from_numpy(a).requires_grad_(True)
+    tb = torch.from_numpy(b).requires_grad_(True)
+    rk.rglru_scan(ta, tb).sum().backward()
+    assert calls == [1] and ta.grad is not None and tb.grad is not None
+
+
+def test_copy_variant_follows_width_and_alignment():
+    """TMA bulk copies need every row segment 16-byte aligned: the training
+    shape (R = 2560) and any R % 4 == 0 on aligned bases take them; an odd
+    R or a view that starts 4 bytes into its buffer takes 4-byte
+    cp.async."""
+    def t(*shape):
+        return torch.empty(shape, dtype=torch.float32)
+
+    assert rk.copy_variant(t(8, 255, 2560), t(8, 255, 2560)) == "bulk"
+    assert rk.copy_variant(t(2, 33, 2564), t(2, 33, 2564),
+                           t(2, 33, 2564)) == "bulk"
+    assert rk.copy_variant(t(2, 300, 2561), t(2, 300, 2561)) == "cp.async"
+    assert rk.copy_variant(t(8, 255, 1), t(8, 255, 1)) == "cp.async"
+    buf = t(2 * 33 * 2560 + 1)
+    view = buf[1:].view(2, 33, 2560)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    assert rk.copy_variant(t(2, 33, 2560), view) == "cp.async"
