@@ -20,18 +20,30 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                TB/s and the plain version's time, and the unfused RG-LRU
                backward as the fused one's yardstick.
   3. checkpoint path — the full-width qwen2.5-3b train state (44 tensors;
-               depth cut to 4 of 36 layers, since the machine takes 45 GiB of
+               depth cut to 1 of 36 layers, since the machine takes 45 GiB of
                disk writes per call and phase 4 needs 29 of them; random values
-               from a seeded torch.Generator on the card) through
-               ``CheckpointManager``: (A) a quantized async save
-               (the embedding mutated in place right after
-               ``wait_snapshotted()``) + restore,
-               (B) a delta chain — step 1, a contiguous 1% change of a few
-               tensors, step 2, restore of step 2. Restored bytes are checked
-               (unquantized: bit-exact; quantized: equal to the plain
-               dequantize(quantize(x)) on the card), step 2's written bytes
-               are held to the dirty chunks plus the lean blob, and each of
-               the four checkpoint kernels must be launched in (A) + (B).
+               from a seeded torch.Generator on the card; AdamW moments
+               quantized) through the port's storage stack, after an O_DIRECT
+               probe and a 512 MiB storage probe:
+               (A) ``MultiLevelCheckpointer``: an async save at level 0 (the
+               embedding mutated in place right after ``wait_snapshotted()``),
+               its level-1 flush, node loss (level 0 deleted), and a restore
+               onto the card through ``RestorePrefetcher`` that promotes the
+               step back to level 0;
+               (B) ``RemoteCheckpointer`` over ``SimObjectStore``: a delta
+               chain (step 1, a contiguous 1% change of four tensors, step 2),
+               each step uploaded with chunk dedup, node loss, and a stream
+               restore of step 2 straight from the store onto the card;
+               (C) the same state saved and restored (reads made cold) through
+               each engine: aggregated, datastates, snapshot, torchsave.
+               Restored bytes are checked (unquantized: bit-exact; quantized:
+               equal to the plain dequantize(quantize(x)) on the card), step
+               2's written and uploaded bytes are held to the dirty chunks plus
+               the lean blob (and the manifest), and each of the four
+               checkpoint kernels must be launched in (A) + (B) + (C). A tally
+               of every byte written (probe, saves, flushes, uploads,
+               promotes, phase 4's checkpoint, 4c) must stay under 42 GiB;
+               the plan is checked before phase 3 starts.
   4. training path — full-width, full-depth recurrentgemma-2b (26 layers, no
                cut; weights from a seeded torch.Generator) through the port's
                ``Trainer`` at batch 8 x 255 tokens: run 1 trains 3 steps with
@@ -46,6 +58,10 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
      4b. the same stack on a narrow float32 config: two train steps on the
                card against two on the CPU (plain path) from one set of
                weights and batches.
+     4c. ``Trainer(multilevel_remote=)`` on 4b's config on the card: run 1
+               saves step 2 at levels 0 and 1, level 0 is deleted, and run 2
+               resumes step 2 through the prefetcher, every leaf digest equal,
+               and trains one more step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON, and the one before that the nvidia-smi line. The run
@@ -89,8 +105,13 @@ TRAIN_SHAPE = (8, 255, 2560)       # (batch, tokens, lru_dim) of phase 4
 # The chip machine takes at most 45 GiB of disk writes per call, deleted
 # files included. Phase 4 writes one full recurrentgemma-2b checkpoint
 # (28.94 GB), so phase 3 runs qwen2.5-3b at a cut depth: every width kept,
-# 4 of its 36 stacked layers (~2.5 GB per save, two saves, a 1 GiB probe).
-CHECKPOINT_LAYERS = 4
+# 1 of its 36 stacked layers (~1.57 GB per save with quantized moments;
+# nine such saves, flushes, uploads and promotes, and a 512 MiB probe).
+CHECKPOINT_LAYERS = 1
+PROBE_BYTES = 512 << 20
+WRITE_LIMIT = 42 << 30             # the run's own budget under the 45 GiB
+QUANT_PREFIXES = ("opt/mu", "opt/nu")
+ENGINE_ORDER = ("aggregated", "datastates", "snapshot", "torchsave")
 
 
 def log(msg: str) -> None:
@@ -528,10 +549,11 @@ def dirty_bound(state: dict, changed: dict, quant: set, blob_nbytes: int
     return nbytes + blob_nbytes, chunks
 
 
-def storage_probe(root: str, nbytes: int = 1 << 30) -> dict:
+def storage_probe(root: str, nbytes: int) -> dict:
     """The storage rate the main path runs against: one ``nbytes`` host
     buffer written and read back through the same engine and settings
-    (aggregated, O_DIRECT), with no device work at all."""
+    (aggregated, O_DIRECT where the filesystem takes it), with no device
+    work at all."""
     import numpy as np
     from repro_torch.core.engines import (EngineConfig, ReadReq, SaveItem,
                                           make_cr_engine)
@@ -551,9 +573,111 @@ def storage_probe(root: str, nbytes: int = 1 << 30) -> dict:
     out = dict(nbytes=nbytes, backend=eng.config.backend,
                write_gbps=nbytes / write_s / 1e9,
                read_gbps=nbytes / read_s / 1e9)
-    log(f"storage probe ({nbytes} B, {eng.config.backend}, O_DIRECT): write "
+    log(f"storage probe ({nbytes} B, {eng.config.backend}): write "
         f"{out['write_gbps']:.3f} GB/s, read {out['read_gbps']:.3f} GB/s")
     return out
+
+
+def odirect_probe(root: str) -> dict:
+    """Whether this filesystem takes O_DIRECT: one open with the flag and
+    one aligned 4 KiB write through it (``io_engine.open_for`` falls back
+    to buffered I/O silently when the open fails)."""
+    import mmap
+    path = os.path.join(root, "odirect_probe")
+    out = dict(open=False, write=False, error="")
+    try:
+        fd = os.open(path, os.O_CREAT | os.O_WRONLY | os.O_TRUNC | os.O_DIRECT,
+                     0o644)
+    except OSError as e:
+        out["error"] = f"open: {e}"
+    else:
+        out["open"] = True
+        buf = mmap.mmap(-1, 4096)            # page-aligned
+        try:
+            out["write"] = os.pwrite(fd, buf, 0) == 4096
+        except OSError as e:
+            out["error"] = f"write: {e}"
+        finally:
+            os.close(fd)
+            buf.close()
+    if os.path.exists(path):
+        os.remove(path)
+    log(f"O_DIRECT probe in {root}: open {'yes' if out['open'] else 'no'}, "
+        f"aligned write {'yes' if out['write'] else 'no'}"
+        + (f" ({out['error']})" if out["error"] else ""))
+    return out
+
+
+def du(path: str) -> int:
+    """Bytes of every file under ``path`` (0 when it does not exist)."""
+    total = 0
+    for d, _dirs, files in os.walk(path):
+        for f in files:
+            total += os.path.getsize(os.path.join(d, f))
+    return total
+
+
+class WriteTally:
+    """Bytes this run wrote to the machine's disk, by what wrote them: the
+    chip machine takes at most 45 GiB of writes per call, deleted files
+    included, and kills the call past it."""
+
+    def __init__(self):
+        self.parts: dict[str, int] = {}
+
+    def add(self, what: str, nbytes: int) -> None:
+        self.parts[what] = self.parts.get(what, 0) + int(nbytes)
+
+    @property
+    def total(self) -> int:
+        return sum(self.parts.values())
+
+    def check(self, label: str) -> None:
+        log(f"write tally {label}: {self.total} B "
+            f"({self.total / 2**30:.2f} GiB, limit "
+            f"{WRITE_LIMIT / 2**30:.0f} GiB)")
+        if self.total >= WRITE_LIMIT:
+            fail(f"wrote {self.total} B, over the {WRITE_LIMIT} B budget")
+
+
+def cold_reads(path: str) -> str:
+    """Make the next read of ``path`` cold: drop the page cache where this
+    process may (root), else evict each file of ``path`` with
+    POSIX_FADV_DONTNEED after a sync. Returns which of the two ran."""
+    os.sync()
+    try:
+        with open("/proc/sys/vm/drop_caches", "w") as f:
+            f.write("3")
+        return "drop_caches"
+    except OSError:
+        pass
+    for d, _dirs, files in os.walk(path):
+        for name in files:
+            fd = os.open(os.path.join(d, name), os.O_RDONLY)
+            try:
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+    return "fadvise"
+
+
+def save_estimate(tensors: dict, quant: set) -> int:
+    """Bytes one save of ``tensors`` writes: packed quantized payloads for
+    ``quant``, raw bytes for the rest (alignment and manifests aside)."""
+    from repro_torch.core import quant_codec
+    return sum(quant_codec.packed_nbytes(t.numel()) if k in quant
+               else t.numel() * t.element_size() for k, t in tensors.items())
+
+
+def planned_writes(save_bytes: int, probe_bytes: int,
+                   train_bytes: int) -> dict:
+    """What the run will write: the probe; (A) a save, its level-1 flush
+    and the promote on restore; (B) step 1 and its upload (the delta steps
+    are a few MB); (C) one save per engine; phase 4's one checkpoint; and
+    1 GiB for the delta steps, manifests, 4c's narrow saves and alignment."""
+    return {"probe": probe_bytes, "(A)": 3 * save_bytes,
+            "(B)": 2 * save_bytes, "(C)": len(ENGINE_ORDER) * save_bytes,
+            "phase 4": train_bytes, "margin": 1 << 30}
 
 
 def stall(root: str) -> dict:
@@ -577,159 +701,347 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_main_path(state: dict, root: str, probe_bytes: int = 1 << 30) -> dict:
-    """Drive ``state`` (a qwen2.5-3b-layout train state) through
-    CheckpointManager on the device its tensors live on."""
-    import torch
-    from repro_torch.core import CheckpointManager, trace
-    from repro_torch.core.serialization import extract_tensors, serialize_lean
-    from repro_torch.kernels import _lib
+def timed_restore(mgr, state: dict, step: int) -> tuple:
+    """(restored state, wall seconds) of a restore onto ``state``'s
+    devices, synchronised on both sides."""
+    device = next(iter(flat_leaves(state).values())).device
+    sync(device)
+    t0 = time.perf_counter()
+    restored = mgr.restore(state, step=step)
+    sync(device)
+    return restored, time.perf_counter() - t0
 
-    quant_prefixes = ("opt/mu", "opt/nu")
-    tensors, _lean = extract_tensors(state)
+
+def restore_row(rm, wall: float, total: int) -> dict:
+    return dict(wall_s=wall, gbps_state=total / wall / 1e9,
+                read_s=rm.read_seconds, read_stall_s=rm.read_stall_seconds,
+                decode_s=rm.decode_seconds, assemble_s=rm.assemble_seconds,
+                prefetch_s=rm.prefetch_seconds)
+
+
+def release(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def level1_node_loss(state: dict, root: str, quant: set, tally: WriteTally,
+                     ) -> dict:
+    """(A) An async quantized save at level 0 (the embedding mutated in
+    place right after ``wait_snapshotted()``), its level-1 flush, node loss
+    (level 0 deleted), and a restore onto the card through
+    ``RestorePrefetcher`` that promotes the step back to level 0."""
+    from repro_torch.core import MultiLevelCheckpointer
+    tensors = flat_leaves(state)
     device = next(iter(tensors.values())).device
     total = state_bytes(tensors)
-    log(f"main path: {len(tensors)} tensors, {total} bytes "
-        f"({total / 2**30:.2f} GiB) on {device}")
-    quant = {k for k in tensors if k.startswith(quant_prefixes)
-             and tensors[k].numel() * tensors[k].element_size() >= 1 << 16}
-    out: dict = {"state_bytes": total, "tensors": len(tensors),
-                 "storage": storage_probe(root, probe_bytes)}
-    trace.enable()
-
-    _lib.reset_launches()
-    # (A) quantized async save + restore, no delta. The embedding is
-    # mutated in place right after wait_snapshotted(), as an optimizer step
-    # would; the restore must still return the saved (pre-mutation) values.
-    dir_a = os.path.join(root, "nondelta")
-    shutil.rmtree(dir_a, ignore_errors=True)
-    leaves = flat_leaves(state)
-    emb = leaves["params/embed"]
+    level0, level1 = os.path.join(root, "A0"), os.path.join(root, "A1")
+    kw = dict(quantize_prefixes=QUANT_PREFIXES, device=device, keep=None)
+    emb = tensors["params/embed"]
     saved_emb = emb.clone()
-    with CheckpointManager(dir_a, quantize_prefixes=quant_prefixes,
-                           device=device, keep=None, async_save=True) as mgr:
+    out: dict = {}
+    with MultiLevelCheckpointer(level0, level1, async_save=True, **kw) as ml:
         t0 = time.perf_counter()
-        m = mgr.save(1, state)
-        mgr.wait_snapshotted()
+        m = ml.save(1, state)
+        ml.wait_snapshotted()
         snap = time.perf_counter() - t0
         emb.add_(1.0)
-        mgr.wait()
+        ml.local.wait()
         wall = time.perf_counter() - t0
-        log(f"(A) async save: blocking {m.blocking_seconds:.3f} s, "
-            f"snapshotted {snap:.3f} s, wall {wall:.3f} s, written "
+        tally.add("(A) level-0 save", du(level0))
+        log(f"(A) async save at level 0: blocking {m.blocking_seconds:.3f} s"
+            f", snapshotted {snap:.3f} s, wall {wall:.3f} s, written "
             f"{m.written_bytes} B, {total / wall / 1e9:.3f} GB/s of state, "
             f"staging copy {m.d2h_seconds:.3f} s, flush "
             f"{m.flush_seconds:.3f} s, commit {m.commit_seconds:.3f} s")
-        out["A_save"] = dict(blocking_s=m.blocking_seconds,
-                             snapshotted_s=snap, wall_s=wall,
-                             total_bytes=m.total_bytes,
-                             written_bytes=m.written_bytes,
-                             staging_copy_s=m.d2h_seconds,
-                             gbps_state=total / wall / 1e9,
-                             gbps_written=m.written_bytes / wall / 1e9,
-                             stall=stall("save"))
-        sync(device)
+        out["save"] = dict(blocking_s=m.blocking_seconds, snapshotted_s=snap,
+                           wall_s=wall, total_bytes=m.total_bytes,
+                           written_bytes=m.written_bytes,
+                           staging_copy_s=m.d2h_seconds,
+                           gbps_state=total / wall / 1e9,
+                           gbps_written=m.written_bytes / wall / 1e9,
+                           stall=stall("save"))
         t0 = time.perf_counter()
-        restored = mgr.restore(state_template=state, step=1)
-        sync(device)
-        wall = time.perf_counter() - t0
-        rm = mgr.last_restore_metrics
-        log(f"(A) restore: wall {wall:.3f} s ({total / wall / 1e9:.3f} GB/s"
-            f" of state), read {rm.read_seconds:.3f} s, decode "
-            f"{rm.decode_seconds:.3f} s, assemble {rm.assemble_seconds:.3f} s")
-        out["A_restore"] = dict(wall_s=wall, read_s=rm.read_seconds,
-                                read_stall_s=rm.read_stall_seconds,
-                                decode_s=rm.decode_seconds,
-                                assemble_s=rm.assemble_seconds,
-                                gbps_state=total / wall / 1e9,
-                                stall=stall("restore"))
+        ml.wait()                           # the level-1 flush
+        wait_s = time.perf_counter() - t0
+        fs = ml.last_flush_stats
+        tally.add("(A) level-1 flush", du(level1))
+        log(f"(A) level-1 flush: {fs.files} files, {fs.bytes} B in "
+            f"{fs.seconds:.3f} s ({fs.gbps:.3f} GB/s; read "
+            f"{fs.read_gbps:.3f}, write {fs.write_gbps:.3f} GB/s), "
+            f"{fs.extents} extents, {fs.hedged} hedged ({fs.hedge_wins} "
+            f"won), backend {fs.backend}; wait() {wait_s:.3f} s")
+        out["flush"] = dict(files=fs.files, bytes=fs.bytes,
+                            seconds=fs.seconds, gbps=fs.gbps,
+                            read_gbps=fs.read_gbps, write_gbps=fs.write_gbps,
+                            extents=fs.extents, hedged=fs.hedged,
+                            hedge_wins=fs.hedge_wins, backend=fs.backend,
+                            wait_s=wait_s)
     emb.copy_(saved_emb)                 # the values the save snapshotted
     del saved_emb
+    shutil.rmtree(level0)                # node loss
+    os.makedirs(level0)
+    with MultiLevelCheckpointer(level0, level1, **kw) as ml:
+        restored, wall = timed_restore(ml, state, 1)
+        rm = ml.last_restore_metrics
+        promoted = ml.local.all_steps()
+        if promoted != [1]:
+            fail(f"(A) the prefetched step was not promoted to level 0: "
+                 f"level 0 holds {promoted}")
+        tally.add("(A) promote to level 0", du(level0))
+        log(f"(A) node-loss restore onto {device}: wall {wall:.3f} s "
+            f"({total / wall / 1e9:.3f} GB/s of state), prefetch "
+            f"{rm.prefetch_seconds:.3f} s, read {rm.read_seconds:.3f} s, "
+            f"decode {rm.decode_seconds:.3f} s, assemble "
+            f"{rm.assemble_seconds:.3f} s; step 1 promoted to level 0")
+        out["restore"] = dict(restore_row(rm, wall, total),
+                              promoted=promoted, stall=stall("restore"))
     check_restored(restored, state, quant)
     del restored
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    shutil.rmtree(dir_a, ignore_errors=True)
+    release(device)
+    shutil.rmtree(level0, ignore_errors=True)
+    shutil.rmtree(level1, ignore_errors=True)
     log("(A) restored state checked")
+    return out
 
-    # (B) delta chain
-    dir_b = os.path.join(root, "delta")
-    shutil.rmtree(dir_b, ignore_errors=True)
+
+def object_store_delta(state: dict, root: str, quant: set,
+                       tally: WriteTally) -> dict:
+    """(B) A delta chain through the object-store tier: step 1 (every
+    chunk) uploaded, a contiguous 1% change of four tensors, step 2 (dirty
+    chunks only) uploaded by dedup, node loss, and a stream restore of
+    step 2 from the store straight onto the card."""
+    from repro_torch.core import RemoteCheckpointer, SimObjectStore
+    from repro_torch.core.manifest import MANIFEST_NAME
+    from repro_torch.core.serialization import extract_tensors, serialize_lean
+    leaves = flat_leaves(state)
+    device = next(iter(leaves.values())).device
+    total = state_bytes(leaves)
+    level0, bucket = os.path.join(root, "B0"), os.path.join(root, "bucket")
+    kw = dict(quantize_prefixes=QUANT_PREFIXES, device=device, keep=None)
     changed = {}
     for key in ("params/embed", "opt/mu/embed",
-                "opt/nu/blocks/b0_attn/mlp/wd",
-                "params/blocks/b0_attn/wq"):
+                "opt/nu/blocks/b0_attn/mlp/wd", "params/blocks/b0_attn/wq"):
         n = leaves[key].numel()
         a = n // 3
         changed[key] = (a, a + n // 100)          # a contiguous 1% slice
-    with CheckpointManager(dir_b, delta=True, quantize_prefixes=quant_prefixes,
-                           device=device, keep=None) as mgr:
+    out: dict = {}
+    store = SimObjectStore(bucket)
+    with RemoteCheckpointer(level0, store, delta=True, **kw) as rc:
         t0 = time.perf_counter()
-        m1 = mgr.save(1, state)
+        m1 = rc.save(1, state)
         wall1 = time.perf_counter() - t0
         if m1.chunks_dirty != m1.chunks_total:
             fail("delta step 1 must write every chunk")
+        tally.add("(B) level-0 saves", du(level0))
+        rc.wait()
+        up1 = rc.last_upload_stats
+        tally.add("(B) uploads", du(bucket))
         log(f"(B) delta step 1: blocking {m1.blocking_seconds:.3f} s, wall "
             f"{wall1:.3f} s, written {m1.written_bytes} B, d2h "
             f"{m1.d2h_bytes} B, chunks {m1.chunks_dirty}/{m1.chunks_total}, "
-            f"fingerprint {m1.fingerprint_seconds:.3f} s")
-        out["B_save1"] = dict(blocking_s=m1.blocking_seconds, wall_s=wall1,
-                              written_bytes=m1.written_bytes,
-                              d2h_bytes=m1.d2h_bytes,
-                              chunks=m1.chunks_total,
-                              fingerprint_s=m1.fingerprint_seconds,
-                              diff_s=m1.diff_seconds, stall=stall("save"))
+            f"fingerprint {m1.fingerprint_seconds:.3f} s; upload "
+            f"{up1.objects} objects, {up1.bytes} B in {up1.seconds:.3f} s "
+            f"({up1.bytes / up1.seconds / 1e9:.3f} GB/s)")
+        out["save1"] = dict(blocking_s=m1.blocking_seconds, wall_s=wall1,
+                            written_bytes=m1.written_bytes,
+                            d2h_bytes=m1.d2h_bytes, chunks=m1.chunks_total,
+                            fingerprint_s=m1.fingerprint_seconds,
+                            diff_s=m1.diff_seconds, stall=stall("save"))
+        out["upload1"] = dict(objects=up1.objects, bytes=up1.bytes,
+                              seconds=up1.seconds,
+                              chunks_shipped=up1.chunks_shipped)
         for key, (a, b) in changed.items():
             leaves[key].view(-1)[a:b] += 1.0 if key.startswith("params") \
                 else 1e-3
         sync(device)
+        before0, before_b = du(level0), du(bucket)
         t0 = time.perf_counter()
-        m2 = mgr.save(2, state)
+        m2 = rc.save(2, state)
         wall2 = time.perf_counter() - t0
+        tally.add("(B) level-0 saves", du(level0) - before0)
+        rc.wait()
+        up2 = rc.last_upload_stats
+        tally.add("(B) uploads", du(bucket) - before_b)
         _, lean = extract_tensors(state)
         bound, bound_chunks = dirty_bound(state, changed, quant,
                                           len(serialize_lean(lean)))
+        manifest = os.path.getsize(os.path.join(
+            level0, "step_00000002", MANIFEST_NAME))
         log(f"(B) delta step 2: blocking {m2.blocking_seconds:.3f} s, wall "
             f"{wall2:.3f} s, written {m2.written_bytes} B (bound {bound}), "
             f"d2h {m2.d2h_bytes} B, chunks {m2.chunks_dirty}/"
             f"{m2.chunks_total} (bound {bound_chunks}), fingerprint "
-            f"{m2.fingerprint_seconds:.3f} s")
-        out["B_save2"] = dict(blocking_s=m2.blocking_seconds, wall_s=wall2,
-                              written_bytes=m2.written_bytes,
-                              d2h_bytes=m2.d2h_bytes,
-                              chunks_dirty=m2.chunks_dirty,
-                              chunks_total=m2.chunks_total,
-                              written_bound=bound,
-                              fingerprint_s=m2.fingerprint_seconds,
-                              diff_s=m2.diff_seconds, stall=stall("save"))
+            f"{m2.fingerprint_seconds:.3f} s; upload {up2.objects} objects, "
+            f"{up2.bytes} B (bound {bound + manifest}: dirty chunks, lean "
+            f"blob, manifest) in {up2.seconds:.3f} s, {up2.chunks_shipped} "
+            f"packs shipped, {up2.chunks_skipped} skipped "
+            f"({up2.bytes_skipped} B kept off the wire)")
+        out["save2"] = dict(blocking_s=m2.blocking_seconds, wall_s=wall2,
+                            written_bytes=m2.written_bytes,
+                            d2h_bytes=m2.d2h_bytes,
+                            chunks_dirty=m2.chunks_dirty,
+                            chunks_total=m2.chunks_total,
+                            written_bound=bound,
+                            fingerprint_s=m2.fingerprint_seconds,
+                            diff_s=m2.diff_seconds, stall=stall("save"))
+        out["upload2"] = dict(objects=up2.objects, bytes=up2.bytes,
+                              bound=bound + manifest, seconds=up2.seconds,
+                              chunks_shipped=up2.chunks_shipped,
+                              chunks_skipped=up2.chunks_skipped,
+                              bytes_skipped=up2.bytes_skipped)
         if not 0 < m2.chunks_dirty <= bound_chunks:
             fail(f"step 2 dirtied {m2.chunks_dirty} chunks, bound "
                  f"{bound_chunks}")
         if m2.written_bytes > bound:
             fail(f"step 2 wrote {m2.written_bytes} B, bound {bound}")
-        sync(device)
-        t0 = time.perf_counter()
-        restored = mgr.restore(state_template=state, step=2)
-        sync(device)
-        wall = time.perf_counter() - t0
-        rm = mgr.last_restore_metrics
-        log(f"(B) delta restore of step 2: wall {wall:.3f} s "
-            f"({total / wall / 1e9:.3f} GB/s of state), read "
-            f"{rm.read_seconds:.3f} s, decode {rm.decode_seconds:.3f} s, "
-            f"assemble {rm.assemble_seconds:.3f} s")
-        out["B_restore2"] = dict(wall_s=wall, gbps_state=total / wall / 1e9,
-                                 read_s=rm.read_seconds,
-                                 read_stall_s=rm.read_stall_seconds,
-                                 decode_s=rm.decode_seconds,
-                                 assemble_s=rm.assemble_seconds,
-                                 stall=stall("restore"))
-    trace.disable()
+        if up2.bytes > bound + manifest:
+            fail(f"step 2 uploaded {up2.bytes} B, bound {bound + manifest}")
+        if rc.tier.committed_steps() != [1, 2]:
+            fail(f"the store committed {rc.tier.committed_steps()}")
+    shutil.rmtree(level0)                # node loss
+    os.makedirs(level0)
+    with RemoteCheckpointer(level0, SimObjectStore(bucket),
+                            restore_mode="stream", **kw) as rc:
+        restored, wall = timed_restore(rc, state, 2)
+        rm = rc.last_restore_metrics
+        rs = rc._remote_mgr().engine.last_range_stats
+        left = [os.path.relpath(os.path.join(d, f), level0)
+                for d, _dirs, fs in os.walk(level0) for f in fs]
+        if left or rc.local.all_steps():
+            fail(f"(B) the stream restore left files at level 0: {left[:4]}")
+        tally.add("(B) stream-restore manifest", rc.store.head(
+            f"{rc.tier.step_key(2)}/{MANIFEST_NAME}").size)
+        p50, p99 = rs.range_percentile(0.5), rs.range_percentile(0.99)
+        log(f"(B) stream restore of step 2 onto {device} (nothing staged at "
+            f"level 0): wall {wall:.3f} s ({total / wall / 1e9:.3f} GB/s of "
+            f"state), read stall {rm.read_stall_seconds:.3f} s, decode "
+            f"{rm.decode_seconds:.3f} s, assemble {rm.assemble_seconds:.3f} "
+            f"s; ranges {rs.ranges}, {rs.bytes} B at {rs.gbps:.3f} GB/s, "
+            f"range p50 {p50 * 1e3:.2f} ms, p99 {p99 * 1e3:.2f} ms, "
+            f"{rs.hedged} hedged ({rs.hedge_wins} won), {rs.retries} "
+            f"retries")
+        out["stream_restore"] = dict(
+            restore_row(rm, wall, total), ranges=rs.ranges,
+            range_bytes=rs.bytes, range_gbps=rs.gbps, range_p50_s=p50,
+            range_p99_s=p99, hedged=rs.hedged, hedge_wins=rs.hedge_wins,
+            retries=rs.retries, stall=stall("restore"))
     check_restored(restored, state, quant)
     del restored
-    shutil.rmtree(dir_b, ignore_errors=True)
+    release(device)
+    shutil.rmtree(level0, ignore_errors=True)
+    shutil.rmtree(bucket, ignore_errors=True)
     log("(B) restored state checked")
+    return out
+
+
+def engine_comparison(state: dict, root: str, quant: set,
+                      tally: WriteTally) -> dict:
+    """(C) The paper's engine comparison: the same state saved (async,
+    quantized moments) and restored through each engine with its own
+    defaults; reads made cold before each restore."""
+    from repro_torch.core import CheckpointManager
+    from repro_torch.core.io_engine import resolve_backend
+    tensors = flat_leaves(state)
+    device = next(iter(tensors.values())).device
+    total = state_bytes(tensors)
+    rows: dict = {}
+    for engine in ENGINE_ORDER:
+        path = os.path.join(root, f"C_{engine}")
+        with CheckpointManager(path, engine=engine, async_save=True,
+                               quantize_prefixes=QUANT_PREFIXES,
+                               device=device, keep=None) as mgr:
+            t0 = time.perf_counter()
+            m = mgr.save(1, state)
+            blocking = time.perf_counter() - t0
+            mgr.wait_snapshotted()
+            snap = time.perf_counter() - t0
+            mgr.wait()
+            wall = time.perf_counter() - t0
+            st = mgr.engine.last_save_stats
+            cfg = mgr.engine.config
+            written = du(path)
+            tally.add("(C) engine saves", written)
+            cold = cold_reads(path)
+            restored, rwall = timed_restore(mgr, state, 1)
+            rm = mgr.last_restore_metrics
+            rst = mgr.engine.last_restore_stats
+        row = dict(engine=engine, blocking_s=blocking,
+                   reported_blocking_s=m.blocking_seconds,
+                   snapshotted_s=snap, wall_s=wall,
+                   written_bytes=m.written_bytes, on_disk_bytes=written,
+                   write_gbps=m.written_bytes / wall / 1e9,
+                   files=st.files, io_requests=st.io_requests,
+                   alloc_s=st.alloc_seconds, copy_s=st.copy_seconds,
+                   backend=resolve_backend(cfg.backend), direct=cfg.direct,
+                   cold=cold, restore_wall_s=rwall,
+                   read_gbps=m.written_bytes / rwall / 1e9,
+                   read_stall_s=rm.read_stall_seconds,
+                   read_files=rst.files, read_io_requests=rst.io_requests,
+                   read_alloc_s=rst.alloc_seconds)
+        log(f"(C) {engine}: blocking {blocking:.3f} s (SaveMetrics "
+            f"{m.blocking_seconds:.3f}), snapshotted {snap:.3f} s, save wall "
+            f"{wall:.3f} s, written {m.written_bytes} B at "
+            f"{row['write_gbps']:.3f} GB/s; files {st.files}, io_requests "
+            f"{st.io_requests}, alloc {st.alloc_seconds:.3f} s, copy "
+            f"{st.copy_seconds:.3f} s; backend {row['backend']}, direct "
+            f"{cfg.direct}; restore ({cold}) wall {rwall:.3f} s at "
+            f"{row['read_gbps']:.3f} GB/s, read stall "
+            f"{rm.read_stall_seconds:.3f} s, read files {rst.files}, "
+            f"requests {rst.io_requests}, alloc {rst.alloc_seconds:.3f} s")
+        rows[engine] = row
+        check_restored(restored, state, quant)
+        del restored
+        release(device)
+        shutil.rmtree(path, ignore_errors=True)
+    agg = rows["aggregated"]
+    ratios = {e: dict(write=agg["write_gbps"] / r["write_gbps"],
+                      read=agg["read_gbps"] / r["read_gbps"])
+              for e, r in rows.items() if e != "aggregated"}
+    log("(C) aggregated over each baseline (this run; the paper's 3.9x over "
+        "DataStates-LLM and 7.6x over TorchSnapshot are its own machine's "
+        "write rates): " + ", ".join(
+            f"{e} write {r['write']:.2f}x read {r['read']:.2f}x"
+            for e, r in ratios.items()))
+    log("(C) every engine's restored state checked")
+    return dict(rows=rows, ratios=ratios)
+
+
+def run_main_path(state: dict, root: str, probe_bytes: int,
+                  tally: WriteTally) -> dict:
+    """Drive ``state`` (a qwen2.5-3b-layout train state) through the
+    port's storage stack on the device its tensors live on: (A) level 0 →
+    level 1 → node loss → restore, (B) a delta chain through the object
+    store, (C) the four engines. Each checkpoint kernel must be launched
+    over the three."""
+    from repro_torch.core import trace
+    from repro_torch.kernels import _lib
+    tensors = flat_leaves(state)
+    device = next(iter(tensors.values())).device
+    total = state_bytes(tensors)
+    log(f"main path: {len(tensors)} tensors, {total} bytes "
+        f"({total / 2**30:.2f} GiB) on {device}")
+    quant = {k for k in tensors if k.startswith(QUANT_PREFIXES)
+             and tensors[k].numel() * tensors[k].element_size() >= 1 << 16}
+    os.makedirs(root, exist_ok=True)
+    out: dict = {"state_bytes": total, "tensors": len(tensors),
+                 "save_estimate": save_estimate(tensors, quant),
+                 "odirect": odirect_probe(root),
+                 "storage": storage_probe(root, probe_bytes)}
+    tally.add("storage probe", probe_bytes)
+    trace.enable()
+    _lib.reset_launches()
+    try:
+        out["A"] = level1_node_loss(state, root, quant, tally)
+        tally.check("after (A)")
+        out["B"] = object_store_delta(state, root, quant, tally)
+        tally.check("after (B)")
+        out["C"] = engine_comparison(state, root, quant, tally)
+        tally.check("after (C)")
+    finally:
+        trace.disable()
     out["launches"] = {k: _lib.LAUNCHES[k] for k in CHECKPOINT_KERNELS}
-    log(f"kernel launches over (A)+(B): {out['launches']}")
+    log(f"kernel launches over (A)+(B)+(C): {out['launches']}")
     for name, count in out["launches"].items():
         if count <= 0:
             fail(f"kernel {name} was never launched on the checkpoint path")
@@ -807,7 +1119,7 @@ def device_profile(prof, wall_s: float, steps: int, top: int = 8) -> dict:
                 top=[dict(name=k, ms=ms, count=n) for k, ms, n in rows[:top]])
 
 
-def run_training(root: str) -> dict:
+def run_training(root: str, tally: WriteTally) -> dict:
     """Phase 4: full recurrentgemma-2b through the port's Trainer, with an
     async checkpoint followed by an in-place step, and a resume in a fresh
     Trainer."""
@@ -858,6 +1170,7 @@ def run_training(root: str) -> dict:
         r1 = t1.run()
     finally:
         t1.close()
+    tally.add("phase 4 checkpoint", du(root))
     finite_losses(r1, [0, 1, 2])
     steps1 = log_steps("run 1", r1, B * S)
     saves = [dict(step=m.step, blocking_s=m.blocking_seconds,
@@ -940,24 +1253,29 @@ def run_training(root: str) -> dict:
     return out
 
 
+def narrow_config():
+    """recurrentgemma-2b's blocks at narrow widths, in float32."""
+    from repro_torch.configs import get_config
+    return get_config("recurrentgemma-2b").replace(
+        dtype="float32", num_layers=3, block_pattern=("rglru", "rglru",
+                                                      "attn_local"),
+        d_model=128, num_heads=2, num_kv_heads=1, head_dim=64, d_ff=256,
+        lru_dim=200, vocab_size=512, sliding_window=16)
+
+
 def cpu_vs_card() -> dict:
     """Phase 4b: two train steps of a narrow float32 recurrentgemma on the
     card and on the CPU from one set of weights and batches. Tolerances:
     loss rtol 1e-4 (cuBLAS and the CPU sum in other orders); params within
     5e-5 + 1e-4 relative (a few learning-rate-sized AdamW steps)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.serialization import tree_map_with_path
     from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.optim import AdamWConfig
     from repro_torch.train.steps import init_train_state, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False     # full float32 matmuls
-    cfg = get_config("recurrentgemma-2b").replace(
-        dtype="float32", num_layers=3, block_pattern=("rglru", "rglru",
-                                                      "attn_local"),
-        d_model=128, num_heads=2, num_kv_heads=1, head_dim=64, d_ff=256,
-        lru_dim=200, vocab_size=512, sliding_window=16)
+    cfg = narrow_config()
     cpu_state = init_train_state(cfg, seed=0, device="cpu")
     states = {"cuda": tree_map_with_path(lambda _p, t: t.cuda(), cpu_state),
               "cpu": cpu_state}
@@ -988,6 +1306,73 @@ def cpu_vs_card() -> dict:
                 param_max_abs_err=param_err)
 
 
+def multilevel_resume(root: str, tally: WriteTally) -> dict:
+    """Phase 4c: ``Trainer(multilevel_remote=)`` on 4b's narrow config on
+    the card. Run 1 trains 2 steps and saves step 2 at level 0 and level 1
+    (every leaf digested on the card as the save is called); level 0 is
+    deleted; run 2, a fresh Trainer, resumes step 2 through the prefetcher
+    with every digest equal, and trains one more step."""
+    import math
+    import torch
+    from repro_torch.data import DataConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = narrow_config()
+    level0, level1 = os.path.join(root, "l0"), os.path.join(root, "l1")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(steps):
+        return Trainer(cfg, TrainerConfig(
+            steps=steps, ckpt_every=2, ckpt_dir=level0,
+            multilevel_remote=level1, keep=1, log_every=1, seed=0),
+            data_cfg=DataConfig(cfg.vocab_size, 64, 2, seed=0),
+            device="cuda")
+
+    t1 = trainer(2)
+    saved: dict = {}
+    save = t1.ckpt.save
+
+    def digesting_save(step, state):
+        saved[step] = digests(state["train"])
+        return save(step, state)
+
+    t1.ckpt.save = digesting_save
+    try:
+        t1.run()
+    finally:
+        t1.close()
+    tally.add("4c saves and flush", du(level0) + du(level1))
+    shutil.rmtree(level0)                # node loss
+    t2 = trainer(3)
+    try:
+        state, start = t2.initial_state()
+        if start != 2 or list(saved) != [2]:
+            fail(f"4c resumed at step {start}; run 1 saved {list(saved)}")
+        got = digests(state)
+        bad = [k for k in saved[2] if not torch.equal(got[k], saved[2][k])]
+        if got.keys() != saved[2].keys() or bad:
+            fail(f"4c: restored leaves differ from the saved ones: {bad[:3]}")
+        rm = t2.ckpt.last_restore_metrics
+        if rm.prefetch_seconds <= 0 or t2.ckpt.local.all_steps() != [2]:
+            fail("4c: the resume did not go through the level-1 prefetcher")
+        tally.add("4c promote", du(level0))
+        r2 = t2.run((state, start))
+    finally:
+        t2.close()
+    losses = [m["loss"] for m in r2["metrics"]]
+    if [m["step"] for m in r2["metrics"]] != [2] or \
+            not all(math.isfinite(x) for x in losses):
+        fail(f"4c: run 2 logged {r2['metrics']}")
+    log(f"4c: level-1 resume of step 2 after level-0 loss in "
+        f"{t2.restore_attr['restore_seconds']:.3f} s (prefetch "
+        f"{rm.prefetch_seconds:.3f} s), {len(got)} leaf digests equal, "
+        f"step 2 promoted to level 0; step 2 loss {losses[0]:.4f}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(restore_s=t2.restore_attr["restore_seconds"],
+                prefetch_s=rm.prefetch_seconds, leaves=len(got),
+                losses=losses)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None,
@@ -999,6 +1384,7 @@ def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: the smoke runs only on the card")
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
 
     # phase 1: build
@@ -1040,17 +1426,33 @@ def main(argv=None) -> int:
     log("kernel rglru_scan device time per call (torch.profiler): " +
         ", ".join(f"{k} {v:.4f} ms" for k, v in r["device_ms"].items()))
 
-    # phase 3: checkpoint path, full width and full depth
+    # phase 3: checkpoint path at full width, depth cut
     from repro_torch.configs import make_train_state, train_state_inventory
+    from repro_torch.train.steps import init_train_state
     state = make_train_state(train_state_inventory("qwen2.5-3b"),
                              device="cuda", seed=0, layers=CHECKPOINT_LAYERS)
     torch.cuda.synchronize()
     log(f"checkpoint path: qwen2.5-3b train state, depth cut to "
         f"{CHECKPOINT_LAYERS} of 36 stacked layers (every width kept)")
+    # the disk-write plan, checked before anything is written
+    tensors = flat_leaves(state)
+    quant = {k for k in tensors if k.startswith(QUANT_PREFIXES)}
+    plan = planned_writes(
+        save_estimate(tensors, quant), PROBE_BYTES,
+        state_bytes(flat_leaves(init_train_state(
+            get_config("recurrentgemma-2b"), device="meta"))))
+    log(f"write plan: {sum(plan.values())} B "
+        f"({sum(plan.values()) / 2**30:.2f} GiB, limit "
+        f"{WRITE_LIMIT / 2**30:.0f} GiB): " + ", ".join(
+            f"{k} {v}" for k, v in plan.items()))
+    if sum(plan.values()) >= WRITE_LIMIT:
+        fail("the run's planned disk writes exceed its budget")
+    del tensors
+    tally = WriteTally()
     root = os.path.join(HERE, "build", "smoke_ckpt")
     t0 = time.perf_counter()
     try:
-        main_path = run_main_path(state, root)
+        main_path = run_main_path(state, root, PROBE_BYTES, tally)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del state
@@ -1059,9 +1461,16 @@ def main(argv=None) -> int:
 
     # phase 4: training path, full width and full depth
     t0 = time.perf_counter()
-    training = run_training(os.path.join(HERE, "build", "smoke_train"))
+    training = run_training(os.path.join(HERE, "build", "smoke_train"),
+                            tally)
     log(f"training path: {time.perf_counter() - t0:.1f} s")
     training["cpu_vs_card"] = cpu_vs_card()
+    t0 = time.perf_counter()
+    training["multilevel_resume"] = multilevel_resume(
+        os.path.join(HERE, "build", "smoke_ml"), tally)
+    log(f"4c: {time.perf_counter() - t0:.1f} s")
+    tally.check("at the end")
+    main_path["write_tally"] = dict(tally.parts, total=tally.total)
 
     launches = dict(main_path["launches"], **training["launches"])
     kernels = []

@@ -7,12 +7,17 @@ same name:
   buffers      aligned, pooled, reusable host buffers
   aggregation  file-per-tensor / file-per-process / single-file planners
   manifest     tensor→extent metadata with global shard indices
-  engines      the aggregated engine
+  engines      aggregated + datastates/snapshot/torchsave baselines, and the
+               remote read engine
   serialization  tensor extraction + lean object (JAX flatten order)
   quant_codec  int8 PQ8P codec, quantized and decoded on the card
   pipeline     streaming save (D2H into pinned staging) and restore
   delta        content-addressed chunk store with on-card fp128 digests
   checkpoint   CheckpointManager: async save, atomic commit, restore
+  tiered       tier-to-tier transfer engine: extent-hedged flush + prefetch
+  multilevel   local→shared-directory two-level flush, hedged stragglers
+  remote       object-store level-2 tier: hedged range reads, dedup upload,
+               direct-to-pipeline remote restore
 """
 
 from .aggregation import (ObjectSpec, Strategy, coalesce, partition_spans,
@@ -21,6 +26,14 @@ from .buffers import AlignedBuffer, BufferPool, PAGE
 from .checkpoint import CheckpointManager, RestoreMetrics, SaveMetrics
 from .delta import DeltaIndex, DeltaPlan, StoreGCStats, gc_store
 from .engines import (AggregatedEngine, ChecksumError, CREngine,
-                      EngineConfig, make_cr_engine)
+                      DataStatesEngine, EngineConfig, ReadReq, ReadStream,
+                      RemoteReadEngine, SaveItem, SaveSpec, SaveStream,
+                      SnapshotEngine, TorchSaveEngine, make_cr_engine)
 from .manifest import ChunkRef, Manifest, ManifestError
+from .multilevel import FlushStats, MultiLevelCheckpointer
+from .remote import (ObjectStore, RangeStats, RemoteCheckpointer,
+                     RemoteConfig, RemoteError, RemotePrefetcher, RemoteTier,
+                     RemoteTransferEngine, RemoteTransientError,
+                     SimObjectStore, SimProfile, UploadStats)
 from .serialization import (LocalShard, state_from_numpy, state_to_numpy)
+from .tiered import RestorePrefetcher, TieredTransferEngine, TransferStats

@@ -257,6 +257,7 @@ class RestoreMetrics:
     h2d_seconds: float = 0.0        # placement of assembled windows; the
     #                                 host→device copy itself happens as each
     #                                 extent is fed and counts under assemble
+    prefetch_seconds: float = 0.0   # tier-1 → tier-0 extent staging
     end_to_end_seconds: float = 0.0
     peak_staged_bytes: int = 0      # max host bytes staged by the read stream
     mode: str = "monolithic"        # monolithic | streaming
@@ -368,6 +369,9 @@ class CheckpointManager:
         self.eager_snapshot = eager_snapshot
         self._staging = HostStaging()
         self._side_stream = None        # (device, worker CUDA stream), lazy
+        # Optional tiered.RestorePrefetcher: when set, restore of a step not
+        # committed here is staged from the remote tier extent-by-extent.
+        self.prefetcher = None
         self._flush_thread: threading.Thread | None = None
         self._flush_error: BaseException | None = None
         self._snapshot_staged: threading.Event | None = None
@@ -778,11 +782,23 @@ class CheckpointManager:
     def _restore_step(self, step: int, state_template, window_fn):
         t_start = trace.clock()
         ckpt = os.path.join(self.directory, step_dir_name(step))
-        with trace.span("restore", attrs={"step": step}):
-            return self._restore_from(ckpt, step, state_template, t_start,
-                                      window_fn)
+        prefetch = None
+        if self.prefetcher is not None and not Manifest.exists(ckpt):
+            # level-1 → level-0 prefetch: stage manifest + lean extents now,
+            # tensor extents once the read plan is known (DESIGN.md §8.3)
+            staged = self.prefetcher.begin(step, self.directory)
+            if staged is not None:
+                ckpt, prefetch = staged, self.prefetcher
+        try:
+            with trace.span("restore", attrs={"step": step}):
+                return self._restore_from(ckpt, step, state_template,
+                                          prefetch, t_start, window_fn)
+        except BaseException:
+            if prefetch is not None:
+                prefetch.discard(ckpt)
+            raise
 
-    def _restore_from(self, ckpt, step, state_template, t_start,
+    def _restore_from(self, ckpt, step, state_template, prefetch, t_start,
                       window_fn=None):
         manifest = Manifest.load(ckpt)
         faults.check_quarantined(ckpt, manifest)
@@ -816,20 +832,25 @@ class CheckpointManager:
         qset = set(manifest.extra.get("quantized", ()))
         if self.streaming:
             out_tensors = self._restore_streaming(
-                ckpt, manifest, lean_tree, wanted, qset, metrics)
+                ckpt, manifest, lean_tree, wanted, qset, prefetch, metrics)
         else:
             out_tensors = self._restore_monolithic(
-                ckpt, manifest, lean_tree, wanted, qset, metrics)
+                ckpt, manifest, lean_tree, wanted, qset, prefetch, metrics)
 
         metrics.total_bytes = sum(
             s.nbytes for r in manifest.tensors.values() for s in r.shards)
+        if prefetch is not None:
+            # full-coverage prefetch commits the step at this tier; a
+            # partial (resharded) one stays staged and is discarded
+            prefetch.finish(ckpt, os.path.join(self.directory,
+                                               step_dir_name(step)))
         metrics.end_to_end_seconds = trace.clock() - t_start
         self.last_restore_metrics = metrics
         state = reinsert_tensors(lean_tree, out_tensors)
         return state
 
     def _restore_streaming(self, ckpt, manifest, lean_tree, wanted, qset,
-                           metrics) -> dict[str, object]:
+                           prefetch, metrics) -> dict[str, object]:
         """Pipelined restore (DESIGN.md §10): extents stream per tensor
         through dequant → window assembly → device placement while later
         tensors' reads are in flight; CRCs verify inside the stream."""
@@ -853,8 +874,15 @@ class CheckpointManager:
                             crcs[f"{t.key}@{r.path}@{r.offset}"] = r.crc32
                     if delta_mod.is_chunked(sh) and sh.crc32 is not None:
                         crcs[f"{t.key}@{sh.path}@{sh.offset}"] = sh.crc32
+        on_reqs = None
+        if prefetch is not None:   # pull exactly the planned extents
+            def on_reqs(reqs):
+                t0 = trace.clock()
+                prefetch.fetch_extents(ckpt, reqs)
+                metrics.prefetch_seconds = trace.clock() - t0
         return RestorePipeline(self.engine).run(
-            ckpt, tasks, crcs=crcs, place=self._place, metrics=metrics)
+            ckpt, tasks, crcs=crcs, place=self._place, on_reqs=on_reqs,
+            metrics=metrics)
 
     def _place(self, task: RestoreTask, windows: dict) -> object:
         """Final leaf from assembled windows: each window was assembled on
@@ -863,7 +891,7 @@ class CheckpointManager:
         return windows[tuple(task.windows[0][0])]
 
     def _restore_monolithic(self, ckpt, manifest, lean_tree, wanted, qset,
-                            metrics) -> dict[str, object]:
+                            prefetch, metrics) -> dict[str, object]:
         """Legacy restore: every extent materialized in host memory (peak =
         full checkpoint), then verify → assemble → H2D serially. Kept as
         ``streaming=False`` for A/B benchmarking."""
@@ -890,6 +918,11 @@ class CheckpointManager:
                         (key, sh.path, sh.offset),
                         ReadReq(f"{key}@{sh.path}@{sh.offset}", sh.path,
                                 sh.offset, sh.nbytes, obj=key))
+        if prefetch is not None:   # pull exactly the planned extents
+            tp = trace.clock()
+            prefetch.fetch_extents(ckpt, list(extent_reqs.values()))
+            metrics.prefetch_seconds = trace.clock() - tp
+            t0 = trace.clock()
         raw = self.engine.read(ckpt, list(extent_reqs.values()))
         metrics.read_seconds = trace.clock() - t0
         metrics.read_stall_seconds = metrics.read_seconds
@@ -1010,6 +1043,8 @@ class CheckpointManager:
 
     def close(self) -> None:
         self.wait()
+        if self.prefetcher is not None:
+            self.prefetcher.close()
         self.engine.close()
 
     def __enter__(self):

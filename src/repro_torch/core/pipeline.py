@@ -282,12 +282,15 @@ class RestorePipeline:
     def run(self, ckpt_dir: str, tasks: list[RestoreTask], *,
             crcs: dict[str, int] | None = None,
             place: Callable | None = None,
+            on_reqs: Callable | None = None,
             metrics=None) -> dict[str, object]:
         """Materialize every task; returns ``{task.key: leaf}``.
 
         ``place(task, windows)`` turns the assembled ``{window: tensor}``
-        dict into the final leaf; ``crcs`` maps request keys to expected
-        crc32s for in-stream verification.
+        dict into the final leaf; ``on_reqs(reqs)`` fires with the planned
+        extent reads before the stream opens (the restore prefetcher pulls
+        exactly these from the remote tier); ``crcs`` maps request keys to
+        expected crc32s for in-stream verification.
         ``metrics`` (RestoreMetrics-shaped) gains stall/decode/assemble/h2d
         seconds and the engine's peak staged bytes."""
         from . import quant_codec
@@ -339,6 +342,8 @@ class RestorePipeline:
                     reqs.append(ReadReq(
                         _extent_req_key(task.key, sh.path, sh.offset),
                         sh.path, sh.offset, sh.nbytes, obj=task.key))
+        if on_reqs is not None:
+            on_reqs(reqs)
 
         stream = self.engine.begin_restore(ckpt_dir, reqs, crcs=crcs)
         out: dict[str, object] = {}

@@ -137,7 +137,10 @@ class WindowAssembler:
         sh_shape = window_shape(tuple(shard.index))
         n = int(np.prod(sh_shape, dtype=np.int64)) * self.dtype.itemsize
         if isinstance(raw, np.ndarray):
-            raw = torch.from_numpy(raw.reshape(-1).view(np.uint8))
+            # torch wraps only writable arrays: a remote stream hands over
+            # read-only views of immutable bytes, which are copied here
+            raw = torch.from_numpy(np.require(raw.reshape(-1).view(np.uint8),
+                                              requirements="W"))
         arr = raw.reshape(-1)[:n].view(self.dtype).reshape(sh_shape)
         for piece in pieces:
             self.out[piece.dst].copy_(arr[piece.src])

@@ -5,8 +5,9 @@ package's checkpoint engine in it — periodic async checkpoints, kill-resume
 fault tolerance, engine/strategy selection, and a report of the checkpoint
 overheads. Runs on the card by default (``--device cpu`` for a reduced run
 on the CPU); ``--full`` trains the full-size config (recurrentgemma-2b fits
-one 80 GB H100). ``--mesh`` and ``--remote-dir`` of the reference wait for
-the sharding and multi-level slices.
+one 80 GB H100). ``--remote-dir`` adds a level-1 directory (two-level
+checkpointing, resumable after the loss of ``--ckpt-dir``); ``--mesh`` of the
+reference waits for the sharding slice.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ def build_trainer(args) -> Trainer:
     tcfg = TrainerConfig(
         steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
         ckpt_engine=args.engine, async_ckpt=not args.sync_ckpt,
-        log_every=args.log_every, seed=args.seed)
+        multilevel_remote=args.remote_dir, log_every=args.log_every,
+        seed=args.seed)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                           global_batch=args.batch, seed=args.seed,
                           frontend_len=cfg.frontend_len,
@@ -64,6 +66,8 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_train_ckpt"))
+    ap.add_argument("--remote-dir", default="",
+                    help="level-1 directory for two-level checkpointing")
     ap.add_argument("--engine", default="aggregated", choices=sorted(ENGINES))
     ap.add_argument("--strategy", default="single_file",
                     choices=["single_file", "file_per_process",

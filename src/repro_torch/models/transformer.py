@@ -42,9 +42,10 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device="cpu"):
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     """Full parameter tree in float32 (``cast_params`` casts it), from a
-    seeded ``torch.Generator`` on ``device`` (shapes only on ``meta``).
+    seeded ``torch.Generator`` on ``device`` (the card by default; shapes
+    only on ``meta``).
     Per-group block params are stacked on axis 0."""
     require_ported(cfg)
     device = torch.device(device)

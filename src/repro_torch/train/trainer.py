@@ -11,8 +11,10 @@ The train step updates the state in place, so before every step the loop
 waits until an in-flight async save holds its snapshot
 (``wait_snapshotted()``) and counts that wait as checkpoint stall.
 
-Not here yet: the two-level (``multilevel_remote``, ROADMAP A3) and
-multi-writer (``ckpt_writers > 1``, ROADMAP A2) checkpointers, and meshes.
+``multilevel_remote`` adds a level-1 directory: every save commits at level
+0 and flushes to it in the background, and a resume whose step is only at
+level 1 (node loss) is prefetched into level 0 first. Not here yet: the
+multi-writer checkpointer (``ckpt_writers > 1``, ROADMAP A2) and meshes.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..core import CheckpointManager, EngineConfig
+from ..core import CheckpointManager, EngineConfig, MultiLevelCheckpointer
 from ..core import trace
 from ..data import DataConfig, SyntheticPipeline, host_info
 from ..models.config import ModelConfig
@@ -39,7 +41,7 @@ class TrainerConfig:
     ckpt_engine: str = "aggregated"
     async_ckpt: bool = True
     streaming_ckpt: bool = True          # SnapshotPipeline save path
-    multilevel_remote: str = ""          # two-level C/R: not ported yet
+    multilevel_remote: str = ""          # level-1 dir: two-level C/R
     ckpt_writers: int = 0                # > 1: not ported yet
     keep: int = 3
     log_every: int = 10
@@ -53,10 +55,10 @@ class Trainer:
                  opt_cfg: AdamWConfig | None = None,
                  engine_config: EngineConfig | None = None,
                  data_cfg: DataConfig | None = None, device="cuda"):
-        if tcfg.multilevel_remote:
-            raise NotImplementedError(
-                "multilevel_remote: the two-level checkpointer is not ported "
-                "yet (ROADMAP A3)")
+        if tcfg.multilevel_remote and tcfg.ckpt_writers > 1:
+            raise ValueError(
+                "multilevel_remote and ckpt_writers > 1 are mutually "
+                "exclusive: the two-level flusher wraps a single manager")
         if tcfg.ckpt_writers > 1:
             raise NotImplementedError(
                 "ckpt_writers > 1: the multi-writer checkpointer is not "
@@ -71,7 +73,13 @@ class Trainer:
             frontend_dim=cfg.frontend_dim)
         self.pipeline = SyntheticPipeline(self.data_cfg, *host_info())
         self.ckpt = None
-        if tcfg.ckpt_every:
+        if tcfg.multilevel_remote:
+            self.ckpt = MultiLevelCheckpointer(
+                tcfg.ckpt_dir, tcfg.multilevel_remote,
+                engine=tcfg.ckpt_engine, config=engine_config,
+                async_save=False, keep=tcfg.keep,
+                streaming=tcfg.streaming_ckpt, device=self.device)
+        elif tcfg.ckpt_every:
             self.ckpt = CheckpointManager(
                 tcfg.ckpt_dir, engine=tcfg.ckpt_engine, config=engine_config,
                 async_save=tcfg.async_ckpt, keep=tcfg.keep,
@@ -204,7 +212,15 @@ class Trainer:
         return out
 
     def _latest(self):
-        return None if self.ckpt is None else self.ckpt.latest_step()
+        """Newest step at any level (level 1 included: after node loss a
+        step may be there only)."""
+        if self.ckpt is None:
+            return None
+        if isinstance(self.ckpt, MultiLevelCheckpointer):
+            steps = sorted(set(self.ckpt.local.all_steps())
+                           | set(self.ckpt._remote_steps()))
+            return steps[-1] if steps else None
+        return self.ckpt.latest_step()
 
     def close(self):
         if self.ckpt is not None:

@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels against their plain versions,
 CUDA-resident saves against CPU-resident ones, and narrow train steps on the
-card against the same steps on the CPU. Marked ``gpu``; each test
+card against the same steps on the CPU, and CUDA states through every
+engine and storage tier. Marked ``gpu``; each test
 skips where there is no card (decided at run time). This file imports no
 JAX, so it runs as it is on a machine that has only PyTorch:
 
@@ -8,12 +9,16 @@ JAX, so it runs as it is on a machine that has only PyTorch:
 """
 
 import os
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import CheckpointManager, EngineConfig
+from repro_torch.core import (CheckpointManager, EngineConfig,
+                              MultiLevelCheckpointer, RemoteCheckpointer,
+                              SimObjectStore)
+from repro_torch.core.engines import ENGINES
 from repro_torch.core.quant_codec import packed_rows
 from repro_torch.kernels import _lib, fingerprint as fpk, quantize as qk
 from repro_torch.kernels.quantize import LANE_COLS
@@ -342,3 +347,79 @@ def test_async_save_barrier_with_cuda_tensors(cuda, tmp_path):
         out = m.restore(step=1)
     for k, v in before.items():
         assert _same(out["params"][k], v)
+
+
+def _cpu_copy(state):
+    return {k: _cpu_copy(v) if isinstance(v, dict) else v.cpu()
+            for k, v in state.items()}
+
+
+def _check_restored(out, want, device):
+    """Plain leaves bit-exact on ``device``; the quantized moment as the
+    plain dequantize(quantize(x)) of the saved one."""
+    got, ref = dict(_leaves(out)), dict(_leaves(want))
+    assert got.keys() == ref.keys()
+    for k, w in ref.items():
+        g = got[k]
+        assert g.device.type == device.type, k
+        if k == "/opt/mu/w":
+            q, sc = qk.quantize_blocks_plain(w.reshape(-1).cuda(),
+                                             -(-w.numel() // LANE_COLS))
+            w = qk.dequantize_blocks_plain(q, sc, w.dtype, n=w.numel())
+        assert _same(g.reshape(-1).cpu(), w.reshape(-1).cpu()), k
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_cuda_state_through_each_engine(cuda, tmp_path, engine):
+    """A CUDA state saved asynchronously through each engine restores onto
+    the card (no template): the baselines write the aggregated engine's
+    tensor bytes, in their own layouts."""
+    state = _state(cuda, 2)
+    want = _cpu_copy(state)
+    with CheckpointManager(str(tmp_path), engine=engine,
+                           quantize_prefixes=("opt/mu",),
+                           quantize_min_bytes=1024, async_save=True,
+                           device="cuda") as m:
+        m.save(1, state)
+        m.wait()
+        out = m.restore(step=1)
+        assert m.engine.last_save_stats.files > 0
+    _check_restored(out, want, cuda)
+
+
+@pytest.mark.parametrize("mode", ["stream", "promote"])
+def test_cuda_state_restores_from_the_object_store_onto_the_card(
+        cuda, tmp_path, mode):
+    """Level-0 loss, then the object-store step restores onto the card with
+    no template: streamed straight into the pipeline (nothing staged
+    locally) or promoted to level 0."""
+    state = _state(cuda, 3)
+    want = _cpu_copy(state)
+    store = SimObjectStore(str(tmp_path / "bucket"))
+    kw = dict(quantize_prefixes=("opt/mu",), quantize_min_bytes=1024,
+              device="cuda")
+    with RemoteCheckpointer(str(tmp_path / "a"), store, delta=True,
+                            upload_async=False, **kw) as rc:
+        rc.save(1, state)
+    with RemoteCheckpointer(str(tmp_path / "b"), store, restore_mode=mode,
+                            **kw) as rc:
+        out = rc.restore(step=1)
+        assert rc.local.all_steps() == ([1] if mode == "promote" else [])
+    _check_restored(out, want, cuda)
+
+
+def test_cuda_state_restores_from_level1_onto_the_card(cuda, tmp_path):
+    state = _state(cuda, 4)
+    want = _cpu_copy(state)
+    l0, l1 = str(tmp_path / "l0"), str(tmp_path / "l1")
+    kw = dict(quantize_prefixes=("opt/mu",), quantize_min_bytes=1024,
+              device="cuda")
+    with MultiLevelCheckpointer(l0, l1, **kw) as ml:
+        ml.save(1, state)
+        ml.wait()
+    shutil.rmtree(l0)
+    with MultiLevelCheckpointer(l0, l1, **kw) as ml:
+        out = ml.restore(step=1)
+        assert ml.last_restore_metrics.prefetch_seconds > 0
+        assert ml.local.all_steps() == [1]
+    _check_restored(out, want, cuda)

@@ -34,7 +34,10 @@ def _port_modules() -> list[str]:
 
 def test_every_module_imports_with_jax_blocked():
     mods = _port_modules()
-    assert "repro_torch.core.checkpoint" in mods
+    for name in ("checkpoint", "multilevel", "remote", "tiered",
+                 "engines.datastates", "engines.snapshot",
+                 "engines.torchsave", "engines.remote"):
+        assert f"repro_torch.core.{name}" in mods
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None\n"
             f"import importlib\nfor m in {mods!r}: importlib.import_module(m)\n"

@@ -227,6 +227,27 @@ def test_unported_features_raise():
         L.rglru_apply({}, x, pc, cache={"h": x})
 
 
+def test_init_params_defaults_to_the_card():
+    import inspect
+    assert inspect.signature(T.init_params).parameters["device"].default \
+        == "cuda"
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_init_params_builds_the_layout_where_asked(device):
+    """On an explicit device the parameter tree has the JAX package's
+    layout, every leaf on that device."""
+    jc, pc = configs("float32")
+    params = T.init_params(pc, device=device)
+    want = [(k[len("params/"):], s, d) for k, s, d in _layout_of_jax(jc)
+            if k.startswith("params/")]
+    got = [(path_str(p), tuple(t.shape), dtype_name(t.dtype))
+           for p, t in tree_leaves_with_path(params)]
+    assert got == want
+    assert {t.device.type for _, t in tree_leaves_with_path(params)} == \
+        {device}
+
+
 # ---------------------------------------------------------------- layout
 def _layout_of_port(state) -> list:
     return [(path_str(p), tuple(t.shape), dtype_name(t.dtype))

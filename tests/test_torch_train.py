@@ -232,12 +232,71 @@ def test_run_resumes_across_packages(tmp_path, writer):
 
 
 def test_unported_checkpointers_raise(tmp_path):
+    """The multi-writer checkpointer is not ported; with a level-1 directory
+    it is refused as in the reference (the two-level flusher wraps one
+    manager)."""
     _, pc = configs()
-    for kw, slice_ in ((dict(multilevel_remote=str(tmp_path)), "A3"),
-                       (dict(ckpt_writers=2, ckpt_every=1), "A2")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            Trainer(pc, TrainerConfig(ckpt_dir=str(tmp_path), **kw),
-                    device="cpu")
+    with pytest.raises(NotImplementedError, match="A2"):
+        Trainer(pc, TrainerConfig(ckpt_dir=str(tmp_path), ckpt_writers=2,
+                                  ckpt_every=1), device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        Trainer(pc, TrainerConfig(ckpt_dir=str(tmp_path), ckpt_writers=2,
+                                  multilevel_remote=str(tmp_path / "l1")),
+                device="cpu")
+
+
+def _multilevel_trainer(d, steps, level1):
+    _, pc = configs()
+    return Trainer(pc, TrainerConfig(
+        steps=steps, ckpt_every=2, ckpt_dir=str(d), async_ckpt=False,
+        log_every=1, keep=None, multilevel_remote=str(level1)),
+        engine_config=port_config(), data_cfg=DataConfig(**DATA),
+        device="cpu")
+
+
+def test_multilevel_trainer_resumes_after_node_loss(tmp_path):
+    """Run 1 checkpoints step 2 at level 0 and flushes it to level 1; level
+    0 is lost; run 2 resumes step 2 through the prefetcher bit-exactly onto
+    the trainer's device (promoting it to level 0) and trains on. The
+    resumed state is what the reference Trainer restores from the same
+    level-1 directory."""
+    l0, l1 = tmp_path / "l0", tmp_path / "l1"
+    t1 = _multilevel_trainer(l0, 3, l1)
+    saved = {}
+    save = t1.ckpt.save
+
+    def recording_save(step, state):
+        saved[step] = leaves_bytes(state)      # the save is synchronous
+        return save(step, state)
+
+    t1.ckpt.save = recording_save
+    straight = _run(t1)
+    assert list(saved) == [2]
+    assert os.path.isdir(l1 / "step_00000002")
+    shutil.rmtree(l0)
+    os.makedirs(l0)
+
+    jc, _ = configs()
+    ref = JaxTrainer(jc, JaxTrainerConfig(
+        steps=2, ckpt_every=2, ckpt_dir=str(tmp_path / "ref0"),
+        async_ckpt=False, log_every=1, keep=None,
+        multilevel_remote=str(l1)), engine_config=ref_config(),
+        data_cfg=JaxDataConfig(**DATA))
+    by_ref = _run(ref)             # restores step 2 and trains no step
+    assert leaves_bytes({"train": by_ref["state"],
+                         "data": ref.pipeline.state_dict()}) == saved[2]
+
+    t2 = _multilevel_trainer(l0, 4, l1)
+    initial = t2.initial_state()
+    assert initial[1] == 2
+    assert leaves_bytes({"train": initial[0],
+                         "data": t2.pipeline.state_dict()}) == saved[2]
+    assert t2.restore_attr["restore_seconds"] > 0
+    assert os.path.isdir(l0 / "step_00000002")          # promoted
+    out = _run(t2, initial)
+    assert sorted(_losses(out)) == [2, 3]
+    np.testing.assert_allclose(_losses(out)[2], _losses(straight)[2],
+                               rtol=1e-4)
 
 
 def test_launch_train_on_the_cpu(tmp_path, capsys):
@@ -256,3 +315,27 @@ def test_launch_train_on_the_cpu(tmp_path, capsys):
     with open(tmp_path / "out.json") as f:
         assert [m["step"] for m in json.load(f)["metrics"]] == [2]
     assert "loss:" in capsys.readouterr().out
+
+
+def test_launch_train_with_a_remote_dir_on_the_cpu(tmp_path):
+    """``--remote-dir``: the step flushed to level 1 survives the loss of
+    ``--ckpt-dir``, and the second run resumes from it (the promoted step
+    holds level 1's bytes)."""
+    ckpt, remote = tmp_path / "ckpt", tmp_path / "l1"
+
+    def args(steps):
+        return ["--device", "cpu", "--steps", str(steps), "--batch", "2",
+                "--seq-len", "16", "--width-div", "32", "--vocab", "64",
+                "--ckpt-every", "2", "--log-every", "1", "--buffered",
+                "--ckpt-dir", str(ckpt), "--remote-dir", str(remote),
+                "--json-out", str(tmp_path / "out.json")]
+
+    launch_train.main(args(2))
+    assert os.path.isdir(remote / "step_00000002")
+    shutil.rmtree(ckpt)
+    launch_train.main(args(3))
+    with open(tmp_path / "out.json") as f:
+        assert [m["step"] for m in json.load(f)["metrics"]] == [2]
+    with port_manager(remote) as a, port_manager(ckpt) as b:
+        assert leaves_bytes(a.restore(step=2)) == \
+            leaves_bytes(b.restore(step=2))
