@@ -35,15 +35,22 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                each step uploaded with chunk dedup, node loss, and a stream
                restore of step 2 straight from the store onto the card;
                (C) the same state saved and restored (reads made cold) through
-               each engine: aggregated, datastates, snapshot, torchsave.
+               each engine: aggregated, datastates, snapshot, torchsave;
+               (D) ``MultiWriterCheckpointer``: 4 writer ranks save the CUDA
+               state's row views asynchronously into one SINGLE_FILE O_DIRECT
+               checkpoint (each rank quantizing its rows of the moments, rank
+               0 merge-committing), then a cold restore onto the card, an
+               elastic 4 -> 2 restore, and a restore into DTensor templates
+               on a 1-rank NCCL mesh (B1 and B2 launched within (D)).
                Restored bytes are checked (unquantized: bit-exact; quantized:
-               equal to the plain dequantize(quantize(x)) on the card), step
-               2's written and uploaded bytes are held to the dirty chunks plus
-               the lean blob (and the manifest), and each of the four
-               checkpoint kernels must be launched in (A) + (B) + (C). A tally
-               of every byte written (probe, saves, flushes, uploads,
-               promotes, phase 4's checkpoint, 4c) must stay under 42 GiB;
-               the plan is checked before phase 3 starts.
+               equal to the plain dequantize(quantize(x)) on the card, per
+               writer rank's rows), step 2's written and uploaded bytes are
+               held to the dirty chunks plus the lean blob (and the
+               manifest), and each of the four checkpoint kernels must be
+               launched in (A) + (B) + (C) + (D). A tally of every byte
+               written (probe, saves, flushes, uploads, promotes, phase 4's
+               checkpoint, 4c, 4d, the campaign's write calls) must stay
+               under 44 GiB; the plan is checked before phase 3 starts.
   4. training path — full-width, full-depth recurrentgemma-2b (26 layers, no
                cut; weights from a seeded torch.Generator) through the port's
                ``Trainer`` at batch 8 x 255 tokens: run 1 trains 3 steps with
@@ -62,6 +69,14 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                saves step 2 at levels 0 and 1, level 0 is deleted, and run 2
                resumes step 2 through the prefetcher, every leaf digest equal,
                and trains one more step.
+     4d. ``Trainer(ckpt_writers=2, async_ckpt=True)`` on 4b's config on the
+               card: step 3 runs in place right after the multi-writer
+               snapshot barrier; a fresh single-writer Trainer resumes step 2
+               and must match the uninterrupted run bit for bit (loss and
+               every final leaf).
+  5. chaos — the port's seeded chaos campaign with restores on the card, for
+               the JAX package's gate seeds (0, 42): zero invariant
+               violations, >= 200 faults fired, every required kind class.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON, and the one before that the nvidia-smi line. The run
@@ -106,10 +121,13 @@ TRAIN_SHAPE = (8, 255, 2560)       # (batch, tokens, lru_dim) of phase 4
 # files included. Phase 4 writes one full recurrentgemma-2b checkpoint
 # (28.94 GB), so phase 3 runs qwen2.5-3b at a cut depth: every width kept,
 # 1 of its 36 stacked layers (~1.57 GB per save with quantized moments;
-# nine such saves, flushes, uploads and promotes, and a 512 MiB probe).
+# nine such saves, flushes, uploads and promotes, a 512 MiB probe, and
+# (D)'s 4-writer save of ~2.49 GB: the stacked block leaves, leading dim 1,
+# are replicated on every writer rank).
 CHECKPOINT_LAYERS = 1
 PROBE_BYTES = 512 << 20
-WRITE_LIMIT = 42 << 30             # the run's own budget under the 45 GiB
+WRITE_LIMIT = 44 << 30             # the run's own budget under the 45 GiB
+WRITERS = 4                        # (D)'s writer ranks
 QUANT_PREFIXES = ("opt/mu", "opt/nu")
 ENGINE_ORDER = ("aggregated", "datastates", "snapshot", "torchsave")
 
@@ -491,9 +509,25 @@ def flat_leaves(state, prefix="") -> dict:
     return out
 
 
-def check_restored(restored: dict, state: dict, quantized: set) -> None:
+def writer_spans(shape, writers: int) -> list[tuple[int, int]]:
+    """Flat (start, stop) value spans each writer rank quantized: its rows
+    of a leaf split by ``partition_spans`` (the whole leaf when short)."""
+    from repro_torch.core.aggregation import partition_spans
+    n = 1
+    for d in shape:
+        n *= d
+    if writers == 1 or not shape or shape[0] < writers:
+        return [(0, n)]
+    row = n // shape[0]
+    return [(lo * row, hi * row)
+            for lo, hi in partition_spans(shape[0], writers)]
+
+
+def check_restored(restored: dict, state: dict, quantized: set,
+                   writers: int = 1) -> None:
     """Unquantized leaves bit-exact; quantized ones equal to the plain
-    dequantize(quantize(x)) of the saved values, computed on the card."""
+    dequantize(quantize(x)) of the saved values, computed on the card (per
+    writer rank's rows when ``writers`` ranks saved the state)."""
     import torch
     from repro_torch.kernels.quantize import (LANE_COLS,
                                               dequantize_blocks_plain,
@@ -511,14 +545,17 @@ def check_restored(restored: dict, state: dict, quantized: set) -> None:
             continue
         src, out = w.reshape(-1), g.reshape(-1)
         step = 1 << 26                     # 64 Mi values = 128 Ki rows
-        for a in range(0, src.numel(), step):
-            part = src[a:a + step]
-            rows = -(-part.numel() // LANE_COLS)
-            qv, sv = quantize_blocks_plain(part, rows)
-            ref = dequantize_blocks_plain(qv, sv, w.dtype, n=part.numel())
-            if not torch.equal(bits(out[a:a + step]), bits(ref)):
-                fail(f"{key}: restored values differ from the plain "
-                     f"dequantize(quantize(x)) at [{a}, {a + step})")
+        for lo, hi in writer_spans(tuple(w.shape), writers):
+            for a in range(lo, hi, step):
+                b = min(a + step, hi)
+                part = src[a:b]
+                rows = -(-part.numel() // LANE_COLS)
+                qv, sv = quantize_blocks_plain(part, rows)
+                ref = dequantize_blocks_plain(qv, sv, w.dtype,
+                                              n=part.numel())
+                if not torch.equal(bits(out[a:b]), bits(ref)):
+                    fail(f"{key}: restored values differ from the plain "
+                         f"dequantize(quantize(x)) at [{a}, {b})")
 
 
 def dirty_bound(state: dict, changed: dict, quant: set, blob_nbytes: int
@@ -635,7 +672,7 @@ class WriteTally:
     def check(self, label: str) -> None:
         log(f"write tally {label}: {self.total} B "
             f"({self.total / 2**30:.2f} GiB, limit "
-            f"{WRITE_LIMIT / 2**30:.0f} GiB)")
+            f"{WRITE_LIMIT / 2**30:.1f} GiB)")
         if self.total >= WRITE_LIMIT:
             fail(f"wrote {self.total} B, over the {WRITE_LIMIT} B budget")
 
@@ -669,15 +706,39 @@ def save_estimate(tensors: dict, quant: set) -> int:
                else t.numel() * t.element_size() for k, t in tensors.items())
 
 
+def multi_writer_estimate(tensors: dict, quant: set, writers: int) -> int:
+    """Bytes one ``writers``-rank save of ``tensors`` writes: each rank's
+    rows of the leaves whose leading dim holds ``writers`` spans (quantized
+    per rank), and a full copy per rank of the rest — the 1-layer state's
+    stacked block leaves (leading dim 1) are replicated, as the reference's
+    row partition replicates them."""
+    from repro_torch.core import quant_codec
+    from repro_torch.core.aggregation import partition_spans
+    total = 0
+    for k, t in tensors.items():
+        if t.ndim == 0:
+            continue                       # host scalars: the lean object
+        row = t.numel() // t.shape[0] if t.shape[0] else 0
+        spans = (partition_spans(t.shape[0], writers)
+                 if t.shape[0] >= writers else [(0, t.shape[0])] * writers)
+        for lo, hi in spans:
+            n = (hi - lo) * row
+            total += (quant_codec.packed_nbytes(n) if k in quant
+                      else n * t.element_size())
+    return total
+
+
 def planned_writes(save_bytes: int, probe_bytes: int,
-                   train_bytes: int) -> dict:
+                   train_bytes: int, multi_bytes: int) -> dict:
     """What the run will write: the probe; (A) a save, its level-1 flush
     and the promote on restore; (B) step 1 and its upload (the delta steps
-    are a few MB); (C) one save per engine; phase 4's one checkpoint; and
-    1 GiB for the delta steps, manifests, 4c's narrow saves and alignment."""
+    are a few MB); (C) one save per engine; (D) one 4-writer save
+    (``multi_bytes``); phase 4's one checkpoint; and 1 GiB for the delta
+    steps, manifests, 4c's and 4d's narrow saves, the chaos campaign and
+    alignment."""
     return {"probe": probe_bytes, "(A)": 3 * save_bytes,
             "(B)": 2 * save_bytes, "(C)": len(ENGINE_ORDER) * save_bytes,
-            "phase 4": train_bytes, "margin": 1 << 30}
+            "(D)": multi_bytes, "phase 4": train_bytes, "margin": 1 << 30}
 
 
 def stall(root: str) -> dict:
@@ -1007,13 +1068,229 @@ def engine_comparison(state: dict, root: str, quant: set,
     return dict(rows=rows, ratios=ratios)
 
 
+def stall_by_rank(root: str, since: float) -> list[dict]:
+    """Attribution of the last ``root`` span of each thread that ran one
+    after ``since`` (``trace.clock()``; one per writer rank) — printed, and
+    returned in thread order."""
+    from repro_torch.core import trace
+    evs = [e for e in trace.drain() if e.t0 >= since]
+    tids = []
+    for e in evs:
+        if e.kind == "span" and e.name == root and e.tid not in tids:
+            tids.append(e.tid)
+    if not tids:
+        fail(f"no {root} span was traced")
+    out = []
+    for n, tid in enumerate(tids):
+        rep = trace.stall_report([e for e in evs if e.tid == tid], root=root)
+        parts = {k: v for k, v in sorted(rep.attribution.items(),
+                                         key=lambda kv: -kv[1]) if v}
+        log(f"  rank thread {n}: {root} wall {rep.wall:.3f} s by category: "
+            + ", ".join(f"{k} {v:.3f} s ({100 * v / rep.wall:.1f}%)"
+                        for k, v in parts.items()))
+        out.append(dict(wall_s=rep.wall, **parts))
+    return out
+
+
+def reader_windows(readers: list, state: dict) -> dict:
+    """The M readers' windows of ``restore_sharded`` put back together into
+    one state like ``state`` (each window checked to be the reader's row
+    span), for ``check_restored``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import LocalShard
+    from repro_torch.core.aggregation import partition_spans
+    want = flat_leaves(state)
+    m = len(readers)
+    out = {}
+    for key, w in want.items():
+        if w.ndim == 0:                   # a host scalar of the lean object
+            out[key] = torch.tensor(np.array(flat_leaves(readers[0])[key]),
+                                    device=w.device)
+            continue
+        leaves = [flat_leaves(r)[key] for r in readers]
+        if w.shape[0] < m:
+            out[key] = leaves[0]
+            continue
+        full = torch.empty_like(w)
+        for r, (leaf, span) in enumerate(zip(
+                leaves, partition_spans(w.shape[0], m))):
+            if not isinstance(leaf, LocalShard) or \
+                    tuple(leaf.index[0]) != span:
+                fail(f"(D) reader {r} of {key}: window "
+                     f"{getattr(leaf, 'index', None)}, expected rows {span}")
+            if leaf.data.device != w.device:
+                fail(f"(D) reader {r} of {key} is on {leaf.data.device}")
+            full[span[0]:span[1]] = leaf.data
+        out[key] = full
+    return reader_tree(out)
+
+
+def dtensor_restore(mw, state: dict, quant: set, root: str) -> dict:
+    """Restore through ``mw``'s first manager into DTensor templates on a
+    1-rank NCCL group's ``DeviceMesh("cuda", (1,))``: ``Shard(0)`` on the
+    2-D leaves, ``Replicate`` on the others; each ``.to_local()`` checked
+    against the state."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    device = next(iter(flat_leaves(state).values())).device
+    pg = os.path.join(root, "pg")
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"file://{pg}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(device.type, (1,))
+
+        def template(v):
+            if not isinstance(v, torch.Tensor) or v.ndim == 0:
+                return v
+            place = [Shard(0)] if v.ndim == 2 else [Replicate()]
+            return DTensor.from_local(v, mesh, place, run_check=False)
+
+        tmpl = reader_tree({k: template(v)
+                            for k, v in flat_leaves(state).items()})
+        t0 = time.perf_counter()
+        got = mw.restore(tmpl, step=1)
+        sync(device)
+        wall = time.perf_counter() - t0
+        leaves = flat_leaves(got)
+        dt = [k for k, v in leaves.items() if isinstance(v, DTensor)]
+        sharded = [k for k in dt if leaves[k].placements == (Shard(0),)]
+        local = reader_tree({k: v.to_local() if isinstance(v, DTensor)
+                             else v for k, v in leaves.items()})
+        del got, leaves, tmpl
+        check_restored(local, state, quant, writers=mw.num_ranks)
+        del local
+    finally:
+        dist.destroy_process_group()
+    log(f"(D) DTensor restore (1-rank {device.type} mesh): {len(dt)} "
+        f"DTensor leaves "
+        f"({len(sharded)} Shard(0)), wall {wall:.3f} s; every to_local() "
+        f"checked")
+    return dict(wall_s=wall, dtensors=len(dt), sharded=len(sharded))
+
+
+def reader_tree(flat: dict) -> dict:
+    """Nested dicts from ``flat_leaves``-style keys."""
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def multi_writer(state: dict, root: str, quant: set, tally: WriteTally
+                 ) -> dict:
+    """(D) The paper's "many processes" axis on one card: 4 writer ranks
+    (threads, each with its own manager and engine) save the CUDA state's
+    row views asynchronously into one SINGLE_FILE O_DIRECT checkpoint with
+    the default ``EngineConfig``, each quantizing its rows of the moments on
+    the card; rank 0 merge-commits. Then a cold restore onto the card
+    through rank 0's manager, an elastic 4 → 2 restore, and a restore into
+    DTensor templates. B1 and B2 must be launched within (D)."""
+    from repro_torch.core import MultiWriterCheckpointer, trace
+    from repro_torch.kernels import _lib
+    since = trace.clock()        # the rank threads' spans are (D)'s
+    tensors = flat_leaves(state)
+    device = next(iter(tensors.values())).device
+    total = state_bytes(tensors)
+    path = os.path.join(root, "D")
+    writers = WRITERS
+    before = dict(_lib.LAUNCHES)
+    out: dict = {"writers": writers}
+    with MultiWriterCheckpointer(path, writers, engine="aggregated",
+                                 async_save=True, keep=None,
+                                 quantize_prefixes=QUANT_PREFIXES,
+                                 device=device) as mw:
+        cfg = mw.managers[0].config
+        t0 = time.perf_counter()
+        m = mw.save(1, state)
+        blocking = time.perf_counter() - t0
+        mw.wait_snapshotted()
+        snap = time.perf_counter() - t0
+        mw.wait()
+        wall = time.perf_counter() - t0
+        written = du(path)
+        tally.add("(D) multi-writer save", written)
+        data = os.path.join(path, "step_00000001", "data")
+        files = sorted(os.listdir(data))
+        ranks = [dict(rank=r, total_bytes=pm.total_bytes,
+                      wall_s=pm.end_to_end_seconds,
+                      flush_s=pm.flush_seconds, commit_s=pm.commit_seconds,
+                      staging_copy_s=pm.d2h_seconds)
+                 for r, pm in enumerate(m.per_rank)]
+        log(f"(D) {writers}-writer async save ({cfg.strategy!s}, direct "
+            f"{cfg.direct}): blocking {blocking:.3f} s (MultiSaveMetrics "
+            f"{m.blocking_seconds:.3f}), snapshotted {snap:.3f} s, "
+            f"end-to-end {m.end_to_end_seconds:.3f} s (wall {wall:.3f} s), "
+            f"{m.total_bytes} B at {m.aggregate_gbps:.3f} GB/s aggregate; "
+            f"files {files}")
+        for r in ranks:
+            log(f"  rank {r['rank']}: {r['total_bytes']} B, wall "
+                f"{r['wall_s']:.3f} s, flush {r['flush_s']:.3f} s, commit "
+                f"{r['commit_s']:.3f} s, staging copy "
+                f"{r['staging_copy_s']:.3f} s")
+        if len(files) != 1:
+            fail(f"(D) SINGLE_FILE save wrote {files}")
+        out["save"] = dict(blocking_s=blocking,
+                           reported_blocking_s=m.blocking_seconds,
+                           snapshotted_s=snap,
+                           end_to_end_s=m.end_to_end_seconds, wall_s=wall,
+                           total_bytes=m.total_bytes, on_disk_bytes=written,
+                           aggregate_gbps=m.aggregate_gbps, files=files,
+                           direct=cfg.direct,
+                           ranks=ranks, stall=stall_by_rank("save", since))
+        out["save"]["strategy"] = str(getattr(cfg.strategy, "value",
+                                              cfg.strategy))
+        cold = cold_reads(path)
+        restored, rwall = timed_restore(mw, state, 1)
+        rm = mw.last_restore_metrics
+        log(f"(D) restore ({cold}) onto {device} through rank 0's manager: "
+            f"wall {rwall:.3f} s ({total / rwall / 1e9:.3f} GB/s of state), "
+            f"read stall {rm.read_stall_seconds:.3f} s, decode "
+            f"{rm.decode_seconds:.3f} s")
+        out["restore"] = dict(restore_row(rm, rwall, total), cold=cold,
+                              stall=stall("restore"))
+        check_restored(restored, state, quant, writers=writers)
+        del restored
+        release(device)
+        sync(device)
+        t0 = time.perf_counter()
+        readers = mw.restore_sharded(2, step=1)
+        sync(device)
+        nwall = time.perf_counter() - t0
+        log(f"(D) elastic {writers} -> 2 restore onto {device}: wall "
+            f"{nwall:.3f} s")
+        whole = reader_windows(readers, state)
+        del readers
+        check_restored(whole, state, quant, writers=writers)
+        del whole
+        release(device)
+        out["n_to_m"] = dict(readers=2, wall_s=nwall)
+        out["dtensor"] = dtensor_restore(mw, state, quant, root)
+        release(device)
+    out["launches"] = {k: _lib.LAUNCHES[k] - before[k]
+                       for k in ("quantize_blocks", "dequantize_blocks")}
+    log(f"(D) restored states checked (whole, 2 readers, DTensor); kernel "
+        f"launches within (D): {out['launches']}")
+    for name, count in out["launches"].items():
+        if count <= 0:
+            fail(f"(D) never launched {name}")
+    shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
 def run_main_path(state: dict, root: str, probe_bytes: int,
                   tally: WriteTally) -> dict:
     """Drive ``state`` (a qwen2.5-3b-layout train state) through the
     port's storage stack on the device its tensors live on: (A) level 0 →
     level 1 → node loss → restore, (B) a delta chain through the object
-    store, (C) the four engines. Each checkpoint kernel must be launched
-    over the three."""
+    store, (C) the four engines, (D) four concurrent writer ranks. Each
+    checkpoint kernel must be launched over the four."""
     from repro_torch.core import trace
     from repro_torch.kernels import _lib
     tensors = flat_leaves(state)
@@ -1026,6 +1303,8 @@ def run_main_path(state: dict, root: str, probe_bytes: int,
     os.makedirs(root, exist_ok=True)
     out: dict = {"state_bytes": total, "tensors": len(tensors),
                  "save_estimate": save_estimate(tensors, quant),
+                 "multi_writer_estimate": multi_writer_estimate(
+                     tensors, quant, WRITERS),
                  "odirect": odirect_probe(root),
                  "storage": storage_probe(root, probe_bytes)}
     tally.add("storage probe", probe_bytes)
@@ -1038,10 +1317,12 @@ def run_main_path(state: dict, root: str, probe_bytes: int,
         tally.check("after (B)")
         out["C"] = engine_comparison(state, root, quant, tally)
         tally.check("after (C)")
+        out["D"] = multi_writer(state, root, quant, tally)
+        tally.check("after (D)")
     finally:
         trace.disable()
     out["launches"] = {k: _lib.LAUNCHES[k] for k in CHECKPOINT_KERNELS}
-    log(f"kernel launches over (A)+(B)+(C): {out['launches']}")
+    log(f"kernel launches over (A)+(B)+(C)+(D): {out['launches']}")
     for name, count in out["launches"].items():
         if count <= 0:
             fail(f"kernel {name} was never launched on the checkpoint path")
@@ -1373,6 +1654,130 @@ def multilevel_resume(root: str, tally: WriteTally) -> dict:
                 losses=losses)
 
 
+def io_written() -> int:
+    """Bytes this process has passed to write calls so far (``wchar`` of
+    /proc/self/io: every thread, O_DIRECT writes included)."""
+    with open("/proc/self/io") as f:
+        for line in f:
+            if line.startswith("wchar:"):
+                return int(line.split()[1])
+    fail("/proc/self/io has no wchar line")
+
+
+def multiwriter_resume(root: str, tally: WriteTally) -> dict:
+    """Phase 4d: ``Trainer(ckpt_writers=2, async_ckpt=True)`` on 4b's
+    narrow config on the card: run 1 trains 3 steps, saving step 2 through
+    two writer ranks and training step 3 in place right after the
+    multi-writer snapshot barrier; run 2, a fresh single-writer Trainer,
+    resumes step 2 and trains step 3. Its loss and final parameters must
+    equal run 1's bit for bit."""
+    import math
+    import torch
+    from repro_torch.core import MultiWriterCheckpointer
+    from repro_torch.data import DataConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = narrow_config()
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(writers, every):
+        return Trainer(cfg, TrainerConfig(
+            steps=3, ckpt_every=every, ckpt_dir=root, async_ckpt=True,
+            ckpt_writers=writers, keep=None, log_every=1, seed=0),
+            data_cfg=DataConfig(cfg.vocab_size, 64, 2, seed=0),
+            device="cuda")
+
+    t1 = trainer(2, 2)
+    if not isinstance(t1.ckpt, MultiWriterCheckpointer):
+        fail("4d: ckpt_writers=2 did not build a MultiWriterCheckpointer")
+    try:
+        r1 = t1.run()
+    finally:
+        t1.close()
+    tally.add("4d saves", du(root))
+    t2 = trainer(0, 5)
+    try:
+        state, start = t2.initial_state()
+        if start != 2:
+            fail(f"4d resumed at step {start}")
+        r2 = t2.run((state, start))
+    finally:
+        t2.close()
+    l1 = {m["step"]: m["loss"] for m in r1["metrics"]}
+    l2 = {m["step"]: m["loss"] for m in r2["metrics"]}
+    if sorted(l1) != [0, 1, 2] or sorted(l2) != [2] or \
+            not all(math.isfinite(x) for x in l1.values()):
+        fail(f"4d: run 1 logged {l1}, run 2 {l2}")
+    if l2[2] != l1[2]:
+        fail(f"4d: resumed step 2 loss {l2[2]!r} is not run 1's {l1[2]!r}")
+    a, b = flat_leaves(r1["state"]), flat_leaves(r2["state"])
+    bad = [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
+    if a.keys() != b.keys() or bad:
+        fail(f"4d: final state differs from the uninterrupted run's at "
+             f"{bad[:3]}")
+    snap = r1["ckpt_snapshot_wait_seconds"]
+    log(f"4d: 2-writer async save of step 2, step 3 in place after the "
+        f"barrier (wait_snapshotted {snap:.3f} s); a single-writer Trainer "
+        f"resumed step 2 in {t2.restore_attr['restore_seconds']:.3f} s: "
+        f"step 2 loss {l2[2]:.6f} and all {len(a)} final leaves bit-equal "
+        f"to the uninterrupted run's")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(loss=l2[2], leaves=len(a), snapshot_wait_s=snap,
+                restore_s=t2.restore_attr["restore_seconds"])
+
+
+CHAOS_SEEDS = (0, 42)              # the gate seeds of the JAX package's
+CHAOS_MIN_FAULTS = 200             # tests/chaos/campaign.py
+# every kind class that must fire across the gate run (prefixes of
+# CampaignStats.by_kind), the JAX package's gate list
+REQUIRED_KINDS = ("crash:", "torn:", "short:", "errno:", "corrupt:",
+                  "crash:gather", "errno:gather",
+                  "crash:rput", "errno:rget", "stall:rget", "short:rget",
+                  "corrupt:remote")
+
+
+def chaos_gate(root: str, tally: WriteTally) -> dict:
+    """Phase 5: the port's seeded chaos campaign on the card (restores land
+    there; the ``delta-gather`` cell fingerprints a CUDA tensor) for the
+    gate seeds. Zero invariant violations, >= 200 faults fired, and every
+    kind class of ``REQUIRED_KINDS``."""
+    from repro_torch.core import chaos
+    shutil.rmtree(root, ignore_errors=True)
+    w0 = io_written()
+    t0 = time.perf_counter()
+    total, kinds, runs = 0, set(), []
+    for seed in CHAOS_SEEDS:
+        ts = time.perf_counter()
+        try:
+            stats = chaos.run_campaign(seed, min_faults=CHAOS_MIN_FAULTS,
+                                       base_dir=os.path.join(root, str(seed)),
+                                       device="cuda")
+        except chaos.InvariantViolation as e:
+            fail(f"chaos seed {seed}: invariant violation\n{e}")
+        for line in stats.summary().splitlines():
+            log(f"  {line}")
+        total += stats.faults
+        kinds.update(stats.by_kind)
+        runs.append(dict(seed=seed, trials=stats.trials, faults=stats.faults,
+                         no_fire=stats.no_fire, seconds=time.perf_counter()
+                         - ts, by_kind=dict(stats.by_kind)))
+    seconds = time.perf_counter() - t0
+    written = io_written() - w0
+    tally.add("phase 5 campaign (write calls)", written)
+    missing = [p for p in REQUIRED_KINDS
+               if not any(k.startswith(p) for k in kinds)]
+    if missing:
+        fail(f"chaos: fault kind classes never fired: {missing}")
+    if total < CHAOS_MIN_FAULTS:
+        fail(f"chaos: only {total} faults fired")
+    log(f"phase 5 chaos gate on the card: {total} faults over seeds "
+        f"{CHAOS_SEEDS}, zero invariant violations, every kind class fired; "
+        f"{seconds:.1f} s, {written} B passed to write calls")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(seeds=runs, faults=total, seconds=seconds,
+                written_bytes=written)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None,
@@ -1440,10 +1845,11 @@ def main(argv=None) -> int:
     plan = planned_writes(
         save_estimate(tensors, quant), PROBE_BYTES,
         state_bytes(flat_leaves(init_train_state(
-            get_config("recurrentgemma-2b"), device="meta"))))
+            get_config("recurrentgemma-2b"), device="meta"))),
+        multi_writer_estimate(tensors, quant, WRITERS))
     log(f"write plan: {sum(plan.values())} B "
         f"({sum(plan.values()) / 2**30:.2f} GiB, limit "
-        f"{WRITE_LIMIT / 2**30:.0f} GiB): " + ", ".join(
+        f"{WRITE_LIMIT / 2**30:.1f} GiB): " + ", ".join(
             f"{k} {v}" for k, v in plan.items()))
     if sum(plan.values()) >= WRITE_LIMIT:
         fail("the run's planned disk writes exceed its budget")
@@ -1469,6 +1875,13 @@ def main(argv=None) -> int:
     training["multilevel_resume"] = multilevel_resume(
         os.path.join(HERE, "build", "smoke_ml"), tally)
     log(f"4c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    training["multiwriter_resume"] = multiwriter_resume(
+        os.path.join(HERE, "build", "smoke_mw"), tally)
+    log(f"4d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    chaos_run = chaos_gate(os.path.join(HERE, "build", "smoke_chaos"), tally)
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
     tally.check("at the end")
     main_path["write_tally"] = dict(tally.parts, total=tally.total)
 
@@ -1487,7 +1900,7 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, kernels=results, main_path=main_path,
-                           training=training), f, indent=1)
+                           training=training, chaos=chaos_run), f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

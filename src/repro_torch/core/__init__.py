@@ -14,10 +14,15 @@ same name:
   pipeline     streaming save (D2H into pinned staging) and restore
   delta        content-addressed chunk store with on-card fp128 digests
   checkpoint   CheckpointManager: async save, atomic commit, restore
+               (DTensor leaves and templates: each rank's local window)
+  multiwriter  N concurrent writer ranks, two-phase rank-0 merge commit,
+               elastic N→M restore; the same commit over torch.distributed
   tiered       tier-to-tier transfer engine: extent-hedged flush + prefetch
   multilevel   local→shared-directory two-level flush, hedged stragglers
   remote       object-store level-2 tier: hedged range reads, dedup upload,
                direct-to-pipeline remote restore
+  faults/chaos fault injection, scrubbing, and the seeded chaos campaign
+               (``python -m repro_torch.core.faults --campaign``)
 """
 
 from .aggregation import (ObjectSpec, Strategy, coalesce, partition_spans,
@@ -31,6 +36,10 @@ from .engines import (AggregatedEngine, ChecksumError, CREngine,
                       SnapshotEngine, TorchSaveEngine, make_cr_engine)
 from .manifest import ChunkRef, Manifest, ManifestError
 from .multilevel import FlushStats, MultiLevelCheckpointer
+from .multiwriter import (CommitCoordinator, DistGroup, InProcessGroup,
+                          MultiSaveMetrics, MultiWriterAborted,
+                          MultiWriterCheckpointer, process_group_manager,
+                          shard_state)
 from .remote import (ObjectStore, RangeStats, RemoteCheckpointer,
                      RemoteConfig, RemoteError, RemotePrefetcher, RemoteTier,
                      RemoteTransferEngine, RemoteTransientError,

@@ -48,6 +48,7 @@ import time
 import uuid
 from dataclasses import dataclass, field, replace
 
+import numpy as np
 import torch
 
 from . import delta as delta_mod
@@ -57,13 +58,15 @@ from .engines import (ChecksumError, EngineConfig, ReadReq, SaveItem,
                       make_cr_engine)
 from .manifest import Manifest, ManifestError, crc32_of
 from .pipeline import (HostStaging, RestorePipeline, RestoreTask,
-                       SnapshotPipeline, build_save_puts, host_bytes,
-                       host_resident, is_dtensor, iter_host_shards)
+                       SnapshotPipeline, build_save_puts, dtensor_window,
+                       host_bytes, host_resident, is_dtensor,
+                       iter_host_shards)
 from .resharding import assemble, dedupe_shards, plan_window
 from .serialization import (LEAN_KEY, deserialize_lean, dtype_name,
                             extract_tensors, is_float_kind, iter_stubs,
-                            reinsert_tensors, serialize_lean, tensor_nbytes,
-                            tree_leaves_with_path, path_str)
+                            np_to_torch, reinsert_tensors, serialize_lean,
+                            tensor_nbytes, tree_leaves_with_path,
+                            tree_map_with_path, path_str)
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 _ASIDE_RE = re.compile(r"^(step_\d{8})\.tmp-old-")
@@ -372,6 +375,14 @@ class CheckpointManager:
         # Optional tiered.RestorePrefetcher: when set, restore of a step not
         # committed here is staged from the remote tier extent-by-extent.
         self.prefetcher = None
+        # Optional multiwriter.CommitCoordinator: when set, _commit runs the
+        # two-phase rank-0 protocol (per-rank manifests, merge, one rename)
+        # instead of publishing per manager (DESIGN.md §11).
+        self.coordinator = None
+        # Optional allgather shim: (value, rank, num_ranks) -> list[int],
+        # overriding the torch.distributed exchange for in-process writer
+        # ranks.
+        self.allgather = None
         self._flush_thread: threading.Thread | None = None
         self._flush_error: BaseException | None = None
         self._snapshot_staged: threading.Event | None = None
@@ -429,7 +440,9 @@ class CheckpointManager:
             faults.rmtree(full, ignore_errors=True)
 
     def _make_tmp(self, step: int) -> str:
-        """Create the step's staging dir."""
+        """Create (or join, under a coordinator) the step's staging dir."""
+        if self.coordinator is not None:
+            return self.coordinator.tmp_dir(self.directory, step)
         tmp = os.path.join(
             self.directory,
             f"{step_dir_name(step)}.tmp-{uuid.uuid4().hex[:8]}")
@@ -462,12 +475,16 @@ class CheckpointManager:
 
     # ----------------------------------------------------------------- save
     def save(self, step: int, state, *, rank: int | None = None,
-             num_ranks: int | None = None) -> SaveMetrics:
+             num_ranks: int | None = None, on_staged=None) -> SaveMetrics:
         """Checkpoint ``state``.
 
         Streaming (default): D2H snapshot, quant-packing, CRC and storage
         writes overlap per extent; async mode returns after submission.
-        Legacy (``streaming=False``): full host copy first, flush after."""
+        Legacy (``streaming=False``): full host copy first, flush after.
+
+        ``on_staged()`` is called once the save no longer reads ``state``
+        (every source byte staged or copied) — the multi-writer snapshot
+        barrier waits on it for every rank."""
         self.wait()  # at most one checkpoint in flight
         t_start = trace.clock()
         dist = _dist()
@@ -493,15 +510,15 @@ class CheckpointManager:
 
         if self.streaming:
             self._save_streaming(step, tensors, lean_blob, rank, num_ranks,
-                                 metrics, t_start)
+                                 metrics, t_start, on_staged)
         else:
             self._save_legacy(step, tensors, lean_blob, rank, num_ranks,
-                              metrics, t_start)
+                              metrics, t_start, on_staged)
         self.last_save_metrics = metrics
         return metrics
 
     def _save_streaming(self, step, tensors, lean_blob, rank, num_ranks,
-                        metrics, t_start) -> None:
+                        metrics, t_start, on_staged=None) -> None:
         """Pipelined save: declare sizes, then snapshot→stage→flush overlap.
 
         Blocking portion = spec building + prefix-sum + (for async) eager
@@ -532,6 +549,11 @@ class CheckpointManager:
 
         staged = threading.Event()
 
+        def mark_staged():
+            staged.set()
+            if on_staged is not None:
+                on_staged()
+
         def run():
             try:
                 with trace.span("save", nbytes=metrics.total_bytes,
@@ -540,9 +562,9 @@ class CheckpointManager:
                     self._run_streaming_flush(step, puts, rank, num_ranks,
                                               rank_totals, metrics, t_start,
                                               quantized_keys, tmp, pipeline,
-                                              staged)
+                                              mark_staged)
             finally:
-                staged.set()   # never leave wait_snapshotted() hanging
+                mark_staged()  # never leave wait_snapshotted() hanging
 
         if self.async_save:
             metrics.blocking_seconds = trace.clock() - t_start
@@ -585,7 +607,7 @@ class CheckpointManager:
 
     def _run_streaming_flush(self, step, puts, rank, num_ranks, rank_totals,
                              metrics, t_start, quantized_keys, tmp, pipeline,
-                             staged) -> None:
+                             mark_staged) -> None:
         run_puts, plan = puts, None
         totals = rank_totals
         if self.delta:
@@ -605,7 +627,7 @@ class CheckpointManager:
         t1 = trace.clock()
         manifest = pipeline.run(tmp, run_puts, step=step, rank=rank,
                                 num_ranks=num_ranks, rank_totals=totals,
-                                on_staged=staged.set)
+                                on_staged=mark_staged)
         metrics.flush_seconds = trace.clock() - t1
         st = self.engine.last_save_stats
         metrics.d2h_seconds = st.copy_seconds + st.alloc_seconds
@@ -614,10 +636,11 @@ class CheckpointManager:
             metrics.written_bytes = plan.written_bytes
         else:
             metrics.written_bytes = metrics.total_bytes
-        self._commit(manifest, tmp, step, quantized_keys, metrics, t_start)
+        self._commit(manifest, tmp, step, quantized_keys, metrics, t_start,
+                     rank=rank)
 
     def _save_legacy(self, step, tensors, lean_blob, rank, num_ranks,
-                     metrics, t_start) -> None:
+                     metrics, t_start, on_staged=None) -> None:
         """Monolithic save: full host copy (and quant-packing) inline on the
         blocking path, then a one-shot engine flush (async: on a thread).
         Kept for A/B benchmarking against the pipelined path."""
@@ -645,6 +668,8 @@ class CheckpointManager:
                                       index, record_key=key))
         items.append(SaveItem(LEAN_KEY, lean_blob, is_blob=True))
         metrics.d2h_seconds = trace.clock() - t0
+        if on_staged is not None:
+            on_staged()             # every payload is a host copy now
         metrics.total_bytes = sum(it.nbytes for it in items)
         metrics.written_bytes = metrics.total_bytes
 
@@ -669,7 +694,7 @@ class CheckpointManager:
                                                 rank_totals=rank_totals)
                 metrics.flush_seconds = trace.clock() - t1
                 self._commit(manifest, tmp, step, quantized_keys, metrics,
-                             t_start)
+                             t_start, rank=rank)
 
         if self.async_save:
             metrics.blocking_seconds = trace.clock() - t_start
@@ -683,8 +708,12 @@ class CheckpointManager:
             metrics.blocking_seconds = metrics.end_to_end_seconds
 
     def _commit(self, manifest, tmp, step, quantized_keys, metrics,
-                t_start) -> None:
-        """Manifest write + atomic publish + GC (paper §2 stage 4)."""
+                t_start, rank: int = 0) -> None:
+        """Manifest write + atomic publish + GC (paper §2 stage 4).
+
+        Under a multi-writer ``coordinator`` this becomes phase 1 + the
+        rank-0 phase 2 of the two-phase commit (DESIGN.md §11); the step dir
+        is renamed exactly once, by rank 0."""
         t2 = trace.clock()
         with trace.span("commit", tier="level0", attrs={"step": step}):
             manifest.extra["save_metrics"] = {
@@ -694,17 +723,22 @@ class CheckpointManager:
             }
             if quantized_keys:
                 manifest.extra["quantized"] = quantized_keys
-            saved = False
-            if self.delta:
-                # relocate fresh chunk/blob files into the shared store and
-                # rewrite the manifest's references BEFORE it is written — a
-                # published manifest never points into a GC-able step dir
-                saved = delta_mod.publish_packs(manifest, tmp, self.directory,
-                                                step_dir_name(step))
-            if not saved:
-                manifest.save(tmp)
-            self._publish(tmp, step)
-            self._gc_old()
+            if self.coordinator is not None:
+                self.coordinator.commit(self, manifest, tmp, step, rank)
+            else:
+                saved = False
+                if self.delta:
+                    # relocate fresh chunk/blob files into the shared store
+                    # and rewrite the manifest's references BEFORE it is
+                    # written — a published manifest never points into a
+                    # GC-able step dir
+                    saved = delta_mod.publish_packs(manifest, tmp,
+                                                    self.directory,
+                                                    step_dir_name(step))
+                if not saved:
+                    manifest.save(tmp)
+                self._publish(tmp, step)
+                self._gc_old()
         metrics.commit_seconds = trace.clock() - t2
         metrics.end_to_end_seconds = trace.clock() - t_start
 
@@ -844,10 +878,29 @@ class CheckpointManager:
             # partial (resharded) one stays staged and is discarded
             prefetch.finish(ckpt, os.path.join(self.directory,
                                                step_dir_name(step)))
+        if window_fn is None:
+            for key, tmpl in template_by_key.items():
+                if is_dtensor(tmpl) and key in out_tensors:
+                    out_tensors[key] = _as_dtensor(
+                        out_tensors[key], tmpl, manifest.tensors[key])
         metrics.end_to_end_seconds = trace.clock() - t_start
         self.last_restore_metrics = metrics
         state = reinsert_tensors(lean_tree, out_tensors)
+        if template_by_key:
+            state = tree_map_with_path(
+                lambda p, x: self._lean_as_template(
+                    x, template_by_key.get(path_str(p))), state)
         return state
+
+    def _lean_as_template(self, leaf, tmpl):
+        """A 0-d array that rode in the lean object (the multi-writer
+        save's replicated scalars, as in the reference) comes back as a
+        tensor where the template holds one, on the template's device."""
+        if not isinstance(leaf, (np.ndarray, np.generic)) or \
+                not isinstance(tmpl, torch.Tensor) or is_dtensor(tmpl):
+            return leaf
+        device = tmpl.device if tmpl.device.type != "meta" else self.device
+        return np_to_torch(np.asarray(leaf), device)
 
     def _restore_streaming(self, ckpt, manifest, lean_tree, wanted, qset,
                            prefetch, metrics) -> dict[str, object]:
@@ -886,8 +939,8 @@ class CheckpointManager:
 
     def _place(self, task: RestoreTask, windows: dict) -> object:
         """Final leaf from assembled windows: each window was assembled on
-        its device already; the first one is the leaf (one process on one
-        card — multi-device placement waits for the DTensor path)."""
+        its device already; the first one is the leaf (a process holds one
+        window of a tensor — its DTensor local shard, wrapped after)."""
         return windows[tuple(task.windows[0][0])]
 
     def _restore_monolithic(self, ckpt, manifest, lean_tree, wanted, qset,
@@ -981,8 +1034,13 @@ class CheckpointManager:
 
     def _allgather_totals(self, local_total: int, rank: int,
                           num_ranks: int) -> list[int]:
-        """Cross-rank padded-total exchange for SINGLE_FILE (paper §3.6),
-        over ``torch.distributed`` when a process group is initialised."""
+        """Cross-rank padded-total exchange for SINGLE_FILE (paper §3.6).
+
+        ``self.allgather`` (an in-process shim under the multi-writer
+        harness) overrides the ``torch.distributed`` exchange."""
+        if self.allgather is not None:
+            return [int(x) for x in self.allgather(local_total, rank,
+                                                   num_ranks)]
         if num_ranks == 1:
             return [local_total]
         dist = _dist()
@@ -995,12 +1053,17 @@ class CheckpointManager:
         return [int(x) for x in gathered]
 
     def _target_windows(self, rec, tmpl):
-        """(window, device) pairs this process must materialize: the whole
+        """(window, device) pairs this process must materialize: for a
+        DTensor template, this rank's local window by the template's mesh
+        and placements, on the mesh's device type; otherwise the whole
         tensor, on the template tensor's device (else the manager's)."""
         if is_dtensor(tmpl):
-            raise NotImplementedError(
-                f"{rec.key}: restoring into a DTensor template needs the "
-                f"multi-writer path, which this package does not have yet")
+            layout = dtensor_window(tmpl.device_mesh, tmpl.placements,
+                                    tuple(rec.global_shape))
+            if layout is None:
+                raise ValueError(f"{rec.key}: this rank is not in the "
+                                 f"template's device mesh")
+            return [(layout[0], _mesh_device(tmpl.device_mesh))]
         device = self.device
         if isinstance(tmpl, torch.Tensor) and tmpl.device.type != "meta":
             device = tmpl.device
@@ -1059,6 +1122,25 @@ def _deduped(rec):
     out = copy.copy(rec)
     out.shards = dedupe_shards(rec)
     return out
+
+
+def _mesh_device(mesh) -> torch.device:
+    """This process's device of a ``DeviceMesh``."""
+    if mesh.device_type == "cpu":
+        return torch.device("cpu")
+    accel = getattr(torch, mesh.device_type)
+    return torch.device(mesh.device_type, accel.current_device())
+
+
+def _as_dtensor(local, tmpl, rec):
+    """This rank's assembled window as a DTensor laid out like ``tmpl``."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(rec.global_shape)
+    stride = tuple(int(np.prod(shape[i + 1:], dtype=np.int64))
+                   for i in range(len(shape)))
+    return DTensor.from_local(local, tmpl.device_mesh, tmpl.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
 
 
 def _template_tensors(state_template) -> dict[str, object]:

@@ -28,9 +28,10 @@ production code pays nothing for the instrumentation. The module must stay
 import-light — ``io_engine`` imports it — so anything touching the
 checkpoint/delta layers is imported at call time.
 
-This is the PyTorch package's copy of ``repro.core.faults``. The seeded
-chaos campaign that drives it has not been carried over yet; the scrubber
-verifies fp128 spans with the numpy host twin in ``kernels.fingerprint``.
+Campaign entry point: ``python -m repro_torch.core.faults --campaign``
+(the deterministic seeded campaign lives in ``core/chaos.py``). This is the
+PyTorch package's copy of ``repro.core.faults``; the scrubber verifies fp128
+spans with the numpy host twin in ``kernels.fingerprint``.
 """
 
 from __future__ import annotations
@@ -664,3 +665,12 @@ def check_quarantined(ckpt_dir: str, manifest) -> None:
     for key, b in manifest.blobs.items():
         if b.path.startswith(STORE_PREFIX):
             _check(b.path, key, None)
+
+
+def main(argv=None) -> int:
+    from .chaos import main as chaos_main   # runtime: chaos imports the stack
+    return chaos_main(argv)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

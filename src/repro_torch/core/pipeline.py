@@ -133,19 +133,66 @@ def snapshot_copy(t):
     return t.detach().clone()
 
 
+def dtensor_window(mesh, placements, global_shape
+                   ) -> tuple[tuple[tuple[int, int], ...], bool] | None:
+    """(global window of this rank's local tensor, writer) of a DTensor
+    layout, or None when this rank is outside ``mesh``.
+
+    ``Shard(d)`` splits dim d with torch's chunking — ceil-sized chunks, the
+    last possibly short or empty (not ``partition_spans``); several mesh
+    dims sharding one tensor dim split it left to right. ``writer`` is True
+    only on the rank whose mesh coordinate is 0 on every ``Replicate`` dim,
+    so each window is saved once. ``Partial`` (an unreduced sum) has no
+    window and is refused."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    if coord is None:
+        return None
+    window = [(0, int(d)) for d in global_shape]
+    writer = True
+    for dim, p in enumerate(placements):
+        if type(p) is Shard:
+            lo, hi = window[p.dim]
+            chunk = -(-(hi - lo) // mesh.size(dim))
+            a = min(lo + coord[dim] * chunk, hi)
+            window[p.dim] = (a, min(a + chunk, hi))
+        elif p.is_replicate():
+            writer = writer and coord[dim] == 0
+        elif p.is_partial():
+            raise ValueError(
+                f"a Partial DTensor placement holds an unreduced sum, not "
+                f"a window of the tensor: reduce it (redistribute to "
+                f"Replicate or Shard) before saving ({placements})")
+        else:
+            raise ValueError(f"unsupported DTensor placement {p!r}")
+    return tuple(window), writer
+
+
 def iter_host_shards(t):
     """Yield (tensor, global_index) for the shards this process owns.
 
     No host copy happens here — materialization is deferred to stream time
     (``PendingPut.resolve``) so the D2H lands directly in staging order.
+    DTensor replicas are deduplicated: only the rank at coordinate 0 of
+    every ``Replicate`` mesh dim writes a window (the counterpart of the
+    reference's ``replica_id == 0``).
     """
     if isinstance(t, LocalShard):
         # multi-writer rank leaf: the window was declared by the caller
         yield t.data, normalize_index(t.index, t.global_shape)
     elif is_dtensor(t):
-        raise NotImplementedError(
-            "DTensor leaves are saved by the multi-writer path, which this "
-            "package does not have yet")
+        layout = dtensor_window(t.device_mesh, t.placements, t.shape)
+        if layout is None or not layout[1]:
+            return
+        window, _ = layout
+        local = t.to_local()
+        if tuple(local.shape) != tuple(hi - lo for lo, hi in window):
+            raise ValueError(
+                f"DTensor local shape {tuple(local.shape)} is not the "
+                f"window {window} its placements give (uneven sharding "
+                f"other than torch's chunking is not supported)")
+        if local.numel() or not t.numel():
+            yield local, window
     else:
         yield t, tuple((0, s) for s in t.shape)
 

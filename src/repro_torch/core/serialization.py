@@ -296,7 +296,7 @@ def as_bytes_view(arr: np.ndarray) -> np.ndarray:
 
 
 # ------------------------------------------- state exchange with numpy trees
-def _np_to_torch(a: np.ndarray, device) -> torch.Tensor:
+def np_to_torch(a: np.ndarray, device) -> torch.Tensor:
     a = np.require(a, requirements="C")   # keeps 0-d arrays 0-d
     name = a.dtype.name
     if name in _EXTENDED.values():
@@ -313,7 +313,7 @@ def state_from_numpy(tree, device="cuda"):
     """numpy pytree (the form ``np.asarray`` gives the JAX package's arrays)
     -> the same tree with every array a torch tensor on ``device``."""
     return tree_map_with_path(
-        lambda _p, x: _np_to_torch(x, device)
+        lambda _p, x: np_to_torch(x, device)
         if isinstance(x, np.ndarray) else x, tree)
 
 

@@ -13,8 +13,10 @@ waits until an in-flight async save holds its snapshot
 
 ``multilevel_remote`` adds a level-1 directory: every save commits at level
 0 and flushes to it in the background, and a resume whose step is only at
-level 1 (node loss) is prefetched into level 0 first. Not here yet: the
-multi-writer checkpointer (``ckpt_writers > 1``, ROADMAP A2) and meshes.
+level 1 (node loss) is prefetched into level 0 first. ``ckpt_writers > 1``
+saves through N concurrent writer ranks (``MultiWriterCheckpointer``): the
+state is row-partitioned per save and rank 0 merge-commits the step; its
+``wait_snapshotted()`` waits for every rank's staging. Not here yet: meshes.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from dataclasses import dataclass
 
 import torch
 
-from ..core import CheckpointManager, EngineConfig, MultiLevelCheckpointer
+from ..core import (CheckpointManager, EngineConfig, MultiLevelCheckpointer,
+                    MultiWriterCheckpointer)
 from ..core import trace
 from ..data import DataConfig, SyntheticPipeline, host_info
 from ..models.config import ModelConfig
@@ -42,7 +45,7 @@ class TrainerConfig:
     async_ckpt: bool = True
     streaming_ckpt: bool = True          # SnapshotPipeline save path
     multilevel_remote: str = ""          # level-1 dir: two-level C/R
-    ckpt_writers: int = 0                # > 1: not ported yet
+    ckpt_writers: int = 0                # > 1: N concurrent writer ranks
     keep: int = 3
     log_every: int = 10
     seed: int = 0
@@ -59,10 +62,6 @@ class Trainer:
             raise ValueError(
                 "multilevel_remote and ckpt_writers > 1 are mutually "
                 "exclusive: the two-level flusher wraps a single manager")
-        if tcfg.ckpt_writers > 1:
-            raise NotImplementedError(
-                "ckpt_writers > 1: the multi-writer checkpointer is not "
-                "ported yet (ROADMAP A2)")
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = torch.device(device)
@@ -78,6 +77,16 @@ class Trainer:
                 tcfg.ckpt_dir, tcfg.multilevel_remote,
                 engine=tcfg.ckpt_engine, config=engine_config,
                 async_save=False, keep=tcfg.keep,
+                streaming=tcfg.streaming_ckpt, device=self.device)
+        elif tcfg.ckpt_every and tcfg.ckpt_writers > 1:
+            # N concurrent writer ranks over one directory: the state is
+            # row-partitioned per save, every rank flushes its windows, and
+            # rank 0 merge-commits the step (restore is elastic: any later
+            # run - multi-writer or not - reads the merged manifest)
+            self.ckpt = MultiWriterCheckpointer(
+                tcfg.ckpt_dir, tcfg.ckpt_writers,
+                engine=tcfg.ckpt_engine, config=engine_config,
+                async_save=tcfg.async_ckpt, keep=tcfg.keep,
                 streaming=tcfg.streaming_ckpt, device=self.device)
         elif tcfg.ckpt_every:
             self.ckpt = CheckpointManager(

@@ -15,9 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (CheckpointManager, EngineConfig,
-                              MultiLevelCheckpointer, RemoteCheckpointer,
-                              SimObjectStore)
+from repro_torch.core import (CheckpointManager, EngineConfig, LocalShard,
+                              MultiLevelCheckpointer, MultiWriterCheckpointer,
+                              RemoteCheckpointer, SimObjectStore,
+                              process_group_manager)
 from repro_torch.core.engines import ENGINES
 from repro_torch.core.quant_codec import packed_rows
 from repro_torch.kernels import _lib, fingerprint as fpk, quantize as qk
@@ -423,3 +424,100 @@ def test_cuda_state_restores_from_level1_onto_the_card(cuda, tmp_path):
         assert ml.last_restore_metrics.prefetch_seconds > 0
         assert ml.local.all_steps() == [1]
     _check_restored(out, want, cuda)
+
+
+def _mw_state(device, seed=5):
+    """Rows that split 4 ways on whole 512-value quantize blocks, a short
+    replicated leaf and 0-d counters (host scalars in the lean object)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *s: torch.randn(s, device=device, generator=g)
+    return {"params": {"w": r(64, 512).to(torch.bfloat16), "b": r(700),
+                       "s": r(3)},
+            "opt": {"mu": {"w": r(64, 512) * 1e-3},
+                    "count": torch.full((), 3, dtype=torch.int32,
+                                        device=device)},
+            "step": torch.full((), 3, dtype=torch.int32, device=device)}
+
+
+def _dequantized(w):
+    q, sc = qk.quantize_blocks_plain(w.reshape(-1).cuda(),
+                                     -(-w.numel() // LANE_COLS))
+    return qk.dequantize_blocks_plain(q, sc, w.dtype,
+                                      n=w.numel()).reshape(w.shape)
+
+
+def test_multiwriter_saves_cuda_shards_and_restores_onto_the_card(
+        cuda, tmp_path):
+    """4 writer ranks over CUDA row views: each rank quantizes its rows of
+    the moment on the card (one B1 launch per rank), the state is mutated
+    in place right after ``wait_snapshotted()``, and the step restores onto
+    the card with the pre-mutation bytes (B2 decodes), whole through a
+    CUDA template and as 2 reader windows."""
+    state = _mw_state(cuda)
+    want = _cpu_copy(state)
+    cfg = EngineConfig(backend="posix", direct=False)
+    kw = dict(config=cfg, async_save=True, quantize_prefixes=("opt/mu",),
+              quantize_min_bytes=1024, device="cuda")
+    _lib.reset_launches()
+    with MultiWriterCheckpointer(str(tmp_path), 4, **kw) as mw:
+        mw.save(1, state)
+        mw.wait_snapshotted()
+        for t in (state["params"]["w"], state["opt"]["mu"]["w"],
+                  state["step"]):
+            t.add_(1)
+        mw.wait()
+        assert _lib.LAUNCHES["quantize_blocks"] == 4
+        assert os.listdir(tmp_path / "step_00000001" / "data") == \
+            ["checkpoint.bin"]
+        out = mw.restore(state, step=1)
+        assert _lib.LAUNCHES["dequantize_blocks"] >= 4
+        readers = mw.restore_sharded(2, step=1)
+    _check_restored(out, want, cuda)
+    mu = _dequantized(want["opt"]["mu"]["w"])
+    for r, tree in enumerate(readers):
+        lo, hi = 32 * r, 32 * (r + 1)
+        w, m = tree["params"]["w"], tree["opt"]["mu"]["w"]
+        assert isinstance(w, LocalShard) and w.index[0] == (lo, hi)
+        assert w.data.device.type == "cuda"
+        assert _same(w.data.cpu(), want["params"]["w"][lo:hi])
+        assert _same(m.data.cpu(), mu[lo:hi].cpu())
+        s = tree["params"]["s"]        # 3 rows: replicated on 4 writers,
+        a, b = s.index[0]              # split over 2 readers
+        assert _same(s.data.cpu(), want["params"]["s"][a:b])
+        assert int(tree["step"]) == 3
+
+
+def test_dtensor_save_and_restore_on_the_card(cuda, tmp_path):
+    """A 1-rank NCCL group: DTensor leaves (``Shard(0)``, ``Replicate``) on
+    a CUDA mesh save through ``process_group_manager`` and restore into
+    DTensor templates on the card, and into plain CUDA tensors."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    base = _state(cuda, 6)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,))
+        place = {"w": [Shard(0)], "b": [Replicate()]}
+        state = {"params": {k: DTensor.from_local(v, mesh, place[k],
+                                                  run_check=False)
+                            for k, v in base["params"].items()}}
+        with process_group_manager(str(tmp_path / "ckpt"), device="cuda",
+                                   config=EngineConfig(backend="posix",
+                                                       direct=False)) as m:
+            m.save(1, state)
+            plain = m.restore(step=1)
+            tmpl = {"params": {k: DTensor.from_local(
+                torch.zeros_like(v), mesh, [Shard(0)], run_check=False)
+                for k, v in base["params"].items()}}
+            got = m.restore(tmpl, step=1)
+        for k, v in base["params"].items():
+            assert _same(plain["params"][k], v)
+            g = got["params"][k]
+            assert isinstance(g, DTensor) and g.placements == (Shard(0),)
+            assert g.to_local().device.type == "cuda"
+            assert _same(g.to_local(), v)
+    finally:
+        dist.destroy_process_group()
+

@@ -10,6 +10,7 @@ restores the other's step to identical leaf bytes, through the prefetcher
 (promoting the step to level 0) or the remote stream.
 """
 
+import errno
 import os
 import shutil
 import subprocess
@@ -185,7 +186,9 @@ def test_partial_prefetch_stays_staged(level1):
 
 class _StallUntilHedged(ThreadPoolEngine):
     """The first large write of a flush waits until its hedged duplicate
-    has landed: an extent-level straggler, with no sleep."""
+    has landed, then fails with an injected EIO: an extent-level straggler
+    that loses deterministically (released with a success, it could still
+    be recorded before the hedge), with no sleep."""
 
     def __init__(self, shared):
         super().__init__(workers=4)
@@ -203,6 +206,8 @@ class _StallUntilHedged(ThreadPoolEngine):
                     sh["offset"] = r.offset
             if first:
                 assert sh["landed"].wait(timeout=30)
+                raise OSError(errno.EIO, "injected EIO on the straggling "
+                                         "primary")
             elif hedge:
                 out = ThreadPoolEngine._do(r)
                 sh["landed"].set()

@@ -32,6 +32,7 @@ from repro.train.steps import (init_train_state as jax_init_state,
 from repro.train.trainer import Trainer as JaxTrainer
 from repro.train.trainer import TrainerConfig as JaxTrainerConfig
 from repro_torch.configs import get_config
+from repro_torch.core import MultiWriterCheckpointer
 from repro_torch.core.serialization import state_from_numpy
 from repro_torch.data import DataConfig, SyntheticPipeline
 from repro_torch.launch import train as launch_train
@@ -232,17 +233,84 @@ def test_run_resumes_across_packages(tmp_path, writer):
 
 
 def test_unported_checkpointers_raise(tmp_path):
-    """The multi-writer checkpointer is not ported; with a level-1 directory
-    it is refused as in the reference (the two-level flusher wraps one
-    manager)."""
+    """``ckpt_writers > 1`` builds the multi-writer checkpointer (ported
+    now); with a level-1 directory it is refused as in the reference (the
+    two-level flusher wraps one manager)."""
     _, pc = configs()
-    with pytest.raises(NotImplementedError, match="A2"):
-        Trainer(pc, TrainerConfig(ckpt_dir=str(tmp_path), ckpt_writers=2,
+    t = Trainer(pc, TrainerConfig(ckpt_dir=str(tmp_path), ckpt_writers=2,
                                   ckpt_every=1), device="cpu")
+    assert isinstance(t.ckpt, MultiWriterCheckpointer)
+    assert t.ckpt.num_ranks == 2 and t.ckpt.managers[1].device.type == "cpu"
+    t.close()
     with pytest.raises(ValueError, match="mutually exclusive"):
         Trainer(pc, TrainerConfig(ckpt_dir=str(tmp_path), ckpt_writers=2,
                                   multilevel_remote=str(tmp_path / "l1")),
                 device="cpu")
+
+
+def _writers_trainer(pkg, d, steps, async_ckpt=False):
+    jc, pc = configs()
+    if pkg == "jax":
+        return JaxTrainer(jc, JaxTrainerConfig(
+            steps=steps, ckpt_every=2, ckpt_dir=str(d), async_ckpt=async_ckpt,
+            log_every=1, keep=None, ckpt_writers=2),
+            engine_config=ref_config(), data_cfg=JaxDataConfig(**DATA))
+    return Trainer(pc, TrainerConfig(
+        steps=steps, ckpt_every=2, ckpt_dir=str(d), async_ckpt=async_ckpt,
+        log_every=1, keep=None, ckpt_writers=2),
+        engine_config=port_config(), data_cfg=DataConfig(**DATA),
+        device="cpu")
+
+
+def test_multiwriter_trainer_resume_is_bit_exact(tmp_path):
+    """``Trainer(ckpt_writers=2, async_ckpt=True)`` steps in place right
+    after the snapshot barrier; a fresh single-writer Trainer resumes its
+    step 2 and matches the uninterrupted run bit for bit (losses and
+    params)."""
+    t1 = _writers_trainer("port", tmp_path / "mw", 4, async_ckpt=True)
+    saved = {}
+    save = t1.ckpt.save
+
+    def recording_save(step, state):
+        saved[step] = leaves_bytes(state)
+        return save(step, state)
+
+    t1.ckpt.save = recording_save
+    straight = _run(t1)
+    assert sorted(saved) == [2, 4]
+    resume = tmp_path / "resume"
+    _step2_only(str(tmp_path / "mw"), str(resume))
+    t2 = _port_trainer(resume, 4)
+    initial = t2.initial_state()
+    assert initial[1] == 2
+    assert leaves_bytes({"train": initial[0],
+                         "data": t2.pipeline.state_dict()}) == saved[2]
+    assert initial[0]["step"].dtype is torch.int32
+    out = _run(t2, initial)
+    assert _losses(out) == {s: _losses(straight)[s] for s in (2, 3)}
+    assert leaves_bytes(out["state"]) == leaves_bytes(straight["state"])
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_multiwriter_run_resumes_across_packages(tmp_path, writer):
+    """Either package's ``Trainer(ckpt_writers=2)`` checkpoint of step 2
+    resumes in the other's (a 2-writer Trainer too): the same restored
+    bytes, and the resumed losses of the uninterrupted run."""
+    full, resume = tmp_path / "full", tmp_path / "resume"
+    reader = "port" if writer == "jax" else "jax"
+    straight = _run(_writers_trainer(writer, full, 4))
+    _step2_only(str(full), str(resume))
+    with RefManager(str(resume), config=ref_config()) as m:
+        by_jax = leaves_bytes(m.restore(step=2))
+    with port_manager(resume) as m:
+        assert leaves_bytes(m.restore(step=2)) == by_jax
+    out = _run(_writers_trainer(reader, resume, 4))
+    assert int(np.asarray(out["state"]["step"])) == 4
+    resumed = _losses(out)
+    assert sorted(resumed) == [2, 3]
+    for s in (2, 3):
+        np.testing.assert_allclose(resumed[s], _losses(straight)[s],
+                                   rtol=1e-4)
 
 
 def _multilevel_trainer(d, steps, level1):
