@@ -49,8 +49,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                manifest), and each of the four checkpoint kernels must be
                launched in (A) + (B) + (C) + (D). A tally of every byte
                written (probe, saves, flushes, uploads, promotes, phase 4's
-               checkpoint, 4c, 4d, the campaign's write calls) must stay
-               under 44 GiB; the plan is checked before phase 3 starts.
+               checkpoint, 4c, 4d, 4e's zoo example, the campaign's write
+               calls) must stay under 44 GiB; the plan is checked before
+               phase 3 starts.
   4. training path — full-width, full-depth recurrentgemma-2b (26 layers, no
                cut; weights from a seeded torch.Generator) through the port's
                ``Trainer`` at batch 8 x 255 tokens: run 1 trains 3 steps with
@@ -74,19 +75,41 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                snapshot barrier; a fresh single-writer Trainer resumes step 2
                and must match the uninterrupted run bit for bit (loss and
                every final leaf).
+     4e. serving path, on phase 4's checkpoint after run 2 — (a) with its
+               reads made cold, a fresh ``CheckpointManager`` swaps phase
+               4's step 2 onto the card, reading only the params (the
+               moments get empty windows through ``window_fn``), each leaf
+               equal to the saved state's digest; (b) 8 seeded requests of
+               64-token prompts through one ``make_prefill_step`` call (the
+               RG-LRU scan once per RG-LRU block: 18 launches at
+               (8, 64, 2560), all on the bulk-copy path that phase 2 holds
+               bit for bit at that shape) and ``steps.generate`` (the
+               prompt teacher-forced through ``decode_step``, then 32
+               greedy tokens): the decode logits at the last prompt
+               position within 0.05 of the largest prefill logit (the JAX
+               package's decode-vs-forward yardstick); prefill ms, decode
+               ms per step, tokens/s, peak memory; (c) full-width
+               qwen2.5-3b, initialised on the card and never checkpointed,
+               served the same way; (d) ``examples/torch_serve_swap.main``
+               on the card (its delta saves fingerprint with B3); (e) a
+               narrow float32 decode on the card against the CPU; last, a
+               7-step decode window of each model under torch.profiler
+               (kernel time, busy share, host stream syncs).
   5. chaos — the port's seeded chaos campaign with restores on the card, for
                the JAX package's gate seeds (0, 42): zero invariant
                violations, >= 200 faults fired, every required kind class.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
-the per-kernel JSON, and the one before that the nvidia-smi line. The run
-needs one card, the repository's ``src/`` beside this file, and room for one
-~29 GB checkpoint under ``build/``.
+the per-kernel JSON (launches summed over phases 3, 4 and 4e, each counted
+from zero), and the one before that the nvidia-smi line. The run needs one
+card, the repository's ``src/`` and ``examples/`` beside this file, and room
+for one ~29 GB checkpoint under ``build/``.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -117,6 +140,7 @@ CHECKPOINT_KERNELS = ("quantize_blocks", "dequantize_blocks",
                       "fingerprint_chunks", "quantize_fingerprint_blocks")
 TRAINING_KERNELS = ("rglru_scan",)
 TRAIN_SHAPE = (8, 255, 2560)       # (batch, tokens, lru_dim) of phase 4
+SERVE_RGLRU = (8, 64, 2560)        # the same of 4e's prefill (SERVE_SHAPE)
 # The chip machine takes at most 45 GiB of disk writes per call, deleted
 # files included. Phase 4 writes one full recurrentgemma-2b checkpoint
 # (28.94 GB), so phase 3 runs qwen2.5-3b at a cut depth: every width kept,
@@ -389,8 +413,8 @@ RGLRU_EDGES = ((4, 1, 2560), (8, 255, 1), (2, 255, 2561), (2, 300, 2560),
 
 def check_rglru(results: dict) -> None:
     """B5's three modes (forward, g-only reverse, fused backward) against
-    their plain loops, bit for bit, at the training path's shape, at edge
-    shapes, on misaligned views (the 4-byte copy path) and with the 0.999^t
+    their plain loops, bit for bit, at the training path's shape, at the
+    serving prefill's, at edge shapes, on misaligned views (the 4-byte copy path) and with the 0.999^t
     carry; CUDA-event times beside the bytes bounds, with the unfused
     backward (the g-only reverse plus the three PyTorch passes that the
     fused mode replaced) timed as its yardstick."""
@@ -477,6 +501,16 @@ def check_rglru(results: dict) -> None:
         library_ms=None, variant=variant,
         shape=f"a, b {TRAIN_SHAPE} f32")
     del a, b, dh, h, am, bm, hm, dhm, want
+    # the serving prefill's shape (S a whole number of ring stages)
+    a, b, dh = inputs(SERVE_RGLRU)
+    if rk.copy_variant(a, b) != "bulk":
+        fail(f"rglru_scan at {SERVE_RGLRU} would take the "
+             f"{rk.copy_variant(a, b)} copy path")
+    serve_err = check(f"{SERVE_RGLRU}", a, b, dh)[1]
+    results["rglru_scan"].update(
+        serve_max_abs_err=serve_err,
+        max_abs_err=max(results["rglru_scan"]["max_abs_err"], serve_err))
+    del a, b, dh
     for shape in RGLRU_EDGES:
         check(f"{shape}", *inputs(shape))
     check("(2, 65, 2560) misaligned",
@@ -729,16 +763,18 @@ def multi_writer_estimate(tensors: dict, quant: set, writers: int) -> int:
 
 
 def planned_writes(save_bytes: int, probe_bytes: int,
-                   train_bytes: int, multi_bytes: int) -> dict:
+                   train_bytes: int, multi_bytes: int,
+                   zoo_bytes: int) -> dict:
     """What the run will write: the probe; (A) a save, its level-1 flush
     and the promote on restore; (B) step 1 and its upload (the delta steps
     are a few MB); (C) one save per engine; (D) one 4-writer save
-    (``multi_bytes``); phase 4's one checkpoint; and 1 GiB for the delta
-    steps, manifests, 4c's and 4d's narrow saves, the chaos campaign and
-    alignment."""
+    (``multi_bytes``); phase 4's one checkpoint; 4e's zoo example
+    (``zoo_bytes``); and 1 GiB for the delta steps, manifests, 4c's and
+    4d's narrow saves, the chaos campaign and alignment."""
     return {"probe": probe_bytes, "(A)": 3 * save_bytes,
             "(B)": 2 * save_bytes, "(C)": len(ENGINE_ORDER) * save_bytes,
-            "(D)": multi_bytes, "phase 4": train_bytes, "margin": 1 << 30}
+            "(D)": multi_bytes, "phase 4": train_bytes, "4e zoo": zoo_bytes,
+            "margin": 1 << 30}
 
 
 def stall(root: str) -> dict:
@@ -1366,17 +1402,22 @@ KERNEL_GROUPS = (("rglru_scan", ("rglru_scan",)),
                  ("reduction", ("reduce",)))
 
 
-def device_profile(prof, wall_s: float, steps: int, top: int = 8) -> dict:
+def device_profile(prof, wall_s: float, steps: int, top: int = 8,
+                   label: str = "run 2 profile") -> dict:
     """Kernel time from a ``torch.profiler`` run (kernel events only, so no
     time is counted twice): per group of kernels, the busiest kernels, and
     the device's busy share of the profiled window's host wall (the
     profiler adds host overhead, so the window is slower than a plain
     step)."""
     from torch.autograd import DeviceType
+    averages = prof.key_averages()
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
+                   for e in averages
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), key=lambda r: -r[1])
+    # the host waiting for the device (a blocking copy waits this way)
+    syncs = sum(e.count for e in averages
+                if e.key == "cudaStreamSynchronize")
     if not rows:
         log("  torch.profiler recorded no kernel time: device busy share "
             "not measured")
@@ -1388,22 +1429,24 @@ def device_profile(prof, wall_s: float, steps: int, top: int = 8) -> dict:
         name = next((g for g, marks in KERNEL_GROUPS
                      if any(m in key for m in marks)), "other")
         groups[name] += ms
-    log(f"  run 2 profile ({steps} steps): kernels {busy_ms:.1f} ms "
+    log(f"  {label} ({steps} steps): kernels {busy_ms:.1f} ms "
         f"({busy_ms / steps:.1f} ms per step) in {wall_s * 1e3:.1f} ms of "
         f"profiled host wall ({100 * busy_ms / (wall_s * 1e3):.1f}% busy); "
         + ", ".join(f"{g} {ms:.1f} ms ({100 * ms / busy_ms:.1f}%)"
                     for g, ms in groups.items()))
+    log(f"    {syncs} cudaStreamSynchronize calls")
     for key, ms, n in rows[:top]:
         log(f"    {ms:9.2f} ms  {n:6d} x  {key[:90]}")
     return dict(kernel_ms=busy_ms, wall_ms=wall_s * 1e3, steps=steps,
-                groups_ms=groups,
+                stream_syncs=syncs, groups_ms=groups,
                 top=[dict(name=k, ms=ms, count=n) for k, ms, n in rows[:top]])
 
 
-def run_training(root: str, tally: WriteTally) -> dict:
+def run_training(root: str, tally: WriteTally) -> tuple[dict, dict]:
     """Phase 4: full recurrentgemma-2b through the port's Trainer, with an
     async checkpoint followed by an in-place step, and a resume in a fresh
-    Trainer."""
+    Trainer. Returns the measurements and the digests of the saved params;
+    the checkpoint stays under ``root`` for phase 4e."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import trace
@@ -1522,7 +1565,6 @@ def run_training(root: str, tally: WriteTally) -> dict:
                        profile=device_profile(prof, r2["wall_seconds"], 2))
     del r2
     torch.cuda.empty_cache()
-    shutil.rmtree(root, ignore_errors=True)
     out["train_steps"] = 5
     log(f"kernel launches over runs 1 and 2 (5 train steps): "
         f"{out['launches']} ({out['launches']['rglru_scan'] / 5:g} "
@@ -1531,7 +1573,8 @@ def run_training(root: str, tally: WriteTally) -> dict:
     for name, count in out["launches"].items():
         if count <= 0:
             fail(f"kernel {name} was never launched on the training path")
-    return out
+    return out, {k[len("params/"):]: v for k, v in saved[2].items()
+                 if k.startswith("params/")}
 
 
 def narrow_config():
@@ -1726,6 +1769,300 @@ def multiwriter_resume(root: str, tally: WriteTally) -> dict:
                 restore_s=t2.restore_attr["restore_seconds"])
 
 
+# ------------------------------------------------------------ phase 4e
+SERVE_SHAPE = (8, 64, 32)          # requests, prompt tokens, new tokens
+SERVE_TOL = 0.05                   # decode against prefill: max |diff| / max
+#                                    |logit|, tests/test_models.py's yardstick
+SERVING_KERNELS = ("rglru_scan", "fingerprint_chunks")
+SERVE_ARCH = "qwen2.5-3b"          # the second model, never checkpointed
+PROFILE_SHAPE = (4, 4)             # prompt and new tokens of the profiled
+#                                    decode window (7 steps)
+
+
+@functools.lru_cache(maxsize=1)
+def serve_example():
+    """``examples/torch_serve_swap.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_swap", os.path.join(HERE, "examples",
+                                         "torch_serve_swap.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def zoo_estimate() -> int:
+    """Bytes the zoo example writes at most: each model's params saved
+    once, and once more if its delta save were all dirty."""
+    from repro_torch.train.steps import init_train_state
+    zoo = serve_example()
+    return 2 * sum(state_bytes(flat_leaves(init_train_state(
+        zoo.zoo_config(a), device="meta")["params"])) for a in zoo.ARCHS)
+
+
+def swap_in(root: str, device) -> tuple[dict, dict]:
+    """4e (a): a fresh ``CheckpointManager`` restores the newest step of
+    ``root`` (a Trainer checkpoint) onto ``device`` and keeps only its
+    params. Every other leaf with rows gets an empty window through
+    ``window_fn``, so the optimizer moments are never read."""
+    import torch
+    from repro_torch.core import CheckpointManager
+
+    def params_only(rec):
+        shape = tuple(rec.global_shape)
+        whole = tuple((0, s) for s in shape)
+        if rec.key.startswith("train/params/") or not shape:
+            return [(whole, None)]
+        return [(((0, 0),) + whole[1:], None)]
+
+    device = torch.device(device)
+    with CheckpointManager(root, device=device) as mgr:
+        step = mgr.latest_step()
+        sync(device)
+        t0 = time.perf_counter()
+        restored = mgr.restore(step=step, window_fn=params_only)
+        sync(device)
+        wall = time.perf_counter() - t0
+        rm = mgr.last_restore_metrics
+    params = restored["train"]["params"]
+    del restored
+    nbytes = state_bytes(flat_leaves(params))
+    out = dict(step=step, wall_s=wall, params_bytes=nbytes,
+               gbps=nbytes / wall / 1e9, read_s=rm.read_seconds,
+               read_stall_s=rm.read_stall_seconds,
+               assemble_s=rm.assemble_seconds, h2d_s=rm.h2d_seconds)
+    log(f"4e (a) swap-in of step {step}'s params ({len(flat_leaves(params))}"
+        f" tensors, {nbytes} B; the moments left unread) onto {device} in "
+        f"{wall:.3f} s ({out['gbps']:.3f} GB/s); read stall "
+        f"{rm.read_stall_seconds:.3f} s, assemble {rm.assemble_seconds:.3f}"
+        f" s")
+    return params, out
+
+
+def serve_requests(cfg, params, device) -> dict:
+    """4e (b)/(c): ``SERVE_SHAPE`` seeded requests through one
+    ``make_prefill_step`` call and ``steps.generate`` (the prompt
+    teacher-forced through ``decode_step``, then greedy tokens). The decode
+    logits at the last prompt position must agree with the prefill's
+    within ``SERVE_TOL``; prefill launches the RG-LRU scan once per RG-LRU
+    block, each on the bulk-copy path, and decode never."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _lib, rglru as rk
+    from repro_torch.models.config import RGLRU
+    from repro_torch.train.steps import generate, make_prefill_step
+    device = torch.device(device)
+    B, S, new = SERVE_SHAPE
+    prompt = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)),
+        dtype=torch.int32, device=device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    b5 = _lib.LAUNCHES["rglru_scan"]
+    bulk = rk.COPY_LAUNCHES["bulk"]
+    sync(device)
+    t0 = time.perf_counter()
+    pre = make_prefill_step(cfg)(params, {"tokens": prompt})
+    sync(device)
+    prefill_s = time.perf_counter() - t0
+    prefill_b5 = _lib.LAUNCHES["rglru_scan"] - b5
+    prefill_bulk = rk.COPY_LAUNCHES["bulk"] - bulk
+    rec: dict = {}
+    t0 = time.perf_counter()
+    toks = generate(cfg, params, prompt, steps=new, record=rec)
+    generate_s = time.perf_counter() - t0
+    decode_b5 = _lib.LAUNCHES["rglru_scan"] - b5 - prefill_b5
+    want_b5 = (cfg.block_pattern.count(RGLRU) * cfg.num_groups
+               if device.type == "cuda" else 0)
+    if prefill_b5 != want_b5 or decode_b5:
+        fail(f"{cfg.name}: rglru_scan launched {prefill_b5} times in the "
+             f"prefill (want {want_b5}) and {decode_b5} in decode (want 0)")
+    if prefill_bulk != prefill_b5:
+        fail(f"{cfg.name}: {prefill_b5 - prefill_bulk} of the prefill's "
+             f"rglru_scan launches left the bulk-copy path")
+    if not (bool(torch.isfinite(pre).all())
+            and bool(torch.isfinite(rec["prompt_logits"]).all())):
+        fail(f"{cfg.name}: non-finite prefill or decode logits")
+    if tuple(toks.shape) != (B, new) or \
+            not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"{cfg.name}: generated {tuple(toks.shape)} tokens, or ids "
+             f"outside the vocabulary")
+    ratio = float((rec["prompt_logits"] - pre).abs().max()) / \
+        float(pre.abs().max())
+    if not ratio < SERVE_TOL:
+        fail(f"{cfg.name}: decode logits at the last prompt position differ "
+             f"from the prefill's by {ratio:.4f} of the largest logit "
+             f"(limit {SERVE_TOL})")
+    steps = rec["step_s"]
+    greedy = steps[S - 1:]
+    out = dict(requests=B, prompt_tokens=S, new_tokens=new,
+               prefill_s=prefill_s, prefill_rglru_launches=prefill_b5,
+               decode_steps=len(steps),
+               decode_median_ms=statistics.median(steps) * 1e3,
+               decode_min_ms=min(steps) * 1e3,
+               decode_max_ms=max(steps) * 1e3,
+               tokens_per_s=B * new / sum(greedy), generate_s=generate_s,
+               decode_vs_prefill=ratio, peak_device_bytes=(torch.cuda.max_memory_allocated()
+                                  if device.type == "cuda" else None))
+    log(f"4e {cfg.name}: {B} requests x {S}-token prompts, {new} new "
+        f"tokens each; prefill {prefill_s * 1e3:.2f} ms ({prefill_b5} "
+        f"rglru_scan launches), decode median {out['decode_median_ms']:.2f}"
+        f" ms per step over {len(steps)} steps (min "
+        f"{out['decode_min_ms']:.2f}, max {out['decode_max_ms']:.2f}), "
+        f"{out['tokens_per_s']:.1f} generated tokens/s, decode vs prefill "
+        f"{ratio:.5f} of the largest logit (limit {SERVE_TOL}), peak device "
+        f"memory {out['peak_device_bytes']} B")
+    return out
+
+
+def check_params(params: dict, want: dict) -> None:
+    """The swapped-in params against phase 4's digests of the saved state
+    (plain fingerprint, bit-equal to the kernel's: phase 2)."""
+    import torch
+    from repro_torch.kernels import fingerprint as fpk
+    got = flat_leaves(params)
+    if got.keys() != want.keys():
+        fail("4e: the swapped-in params have other leaves than the saved")
+    bad = [k for k, t in got.items() if not torch.equal(
+        fpk.fingerprint_chunks_plain(t.contiguous(), CHUNK).cpu(), want[k])]
+    if bad:
+        fail(f"4e: {len(bad)} swapped-in params differ from the saved "
+             f"ones, e.g. {bad[:3]}")
+
+
+def card_vs_cpu_decode(steps: int = 24) -> dict:
+    """4e (e): ``steps`` decode steps of 4b's narrow float32 recurrentgemma
+    (its 16-token ring wraps) on the card and on the CPU from one set of
+    weights and tokens. Tolerance: logits and every cache leaf within rtol
+    1e-4, atol 1e-5 (cuBLAS and the CPU sum in other orders)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.serialization import tree_map_with_path
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import init_train_state, make_serve_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = narrow_config()
+    cpu = init_train_state(cfg, seed=0, device="cpu")["params"]
+    params = {"cpu": cpu,
+              "cuda": tree_map_with_path(lambda _p, t: t.cuda(), cpu)}
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, steps)), dtype=torch.int32)
+    serve = make_serve_step(cfg)
+    logits: dict = {}
+    caches = {}
+    for dev in params:
+        cache = T.init_cache(cfg, 2, steps, device=dev)
+        for t in range(steps):
+            pos = torch.full((2, 1), t, dtype=torch.int32, device=dev)
+            out, cache = serve(params[dev], cache,
+                               tokens[:, t:t + 1].to(dev), pos)
+            logits.setdefault(dev, []).append(out.cpu())
+        caches[dev] = flat_leaves(cache)
+    err = 0.0
+    pairs = list(zip(logits["cuda"], logits["cpu"])) + [
+        (caches["cuda"][k].cpu(), caches["cpu"][k]) for k in caches["cpu"]]
+    for got, want in pairs:
+        diff = (got.double() - want.double()).abs()
+        err = max(err, float(diff.max()))
+        if bool((diff > 1e-5 + 1e-4 * want.double().abs()).any()):
+            fail(f"4e card vs CPU decode differs: max {float(diff.max())}")
+    log(f"4e (e) card vs CPU, narrow float32 decode, {steps} steps: logits "
+        f"and {len(caches['cpu'])} cache leaves within rtol 1e-4 / atol "
+        f"1e-5, max abs diff {err:.2e}")
+    return dict(steps=steps, max_abs_err=err)
+
+
+def serve_path(root: str, zoo_root: str, tally: WriteTally,
+               params_digests: dict) -> dict:
+    """Phase 4e: the serving path. (a) full-width recurrentgemma-2b's
+    params swapped in from phase 4's checkpoint under ``root`` and checked
+    against its digests, (b) served; (c) full-width qwen2.5-3b, initialised
+    on the card, served; (d) the zoo example on the card; (e) a narrow
+    decode on the card against the CPU; last, each model's decode under
+    the profiler. The RG-LRU scan (prefill) and the fingerprint kernel (the
+    example's delta saves) must be launched."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import layers as L, transformer as T
+    torch.cuda.empty_cache()
+    out: dict = {}
+    out["swap_in_reads"] = cold_reads(root)
+    _lib.reset_launches()
+    params, out["swap_in"] = swap_in(root, "cuda")
+    check_params(params, params_digests)
+    log(f"4e (a): {len(params_digests)} swapped-in params equal the saved "
+        f"state's digests")
+    cfg = get_config("recurrentgemma-2b")
+    out[cfg.name] = serve_requests(cfg, params, "cuda")
+    del params
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = T.cast_params(T.init_params(cfg, seed=0, device="cuda"),
+                           L.dtype_of(cfg))
+    log(f"4e (c) {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, initialised on the card in "
+        f"{time.perf_counter() - t0:.3f} s "
+        f"({state_bytes(flat_leaves(params))} B of params)")
+    out[cfg.name] = serve_requests(cfg, params, "cuda")
+    del params
+    torch.cuda.empty_cache()
+    w0 = io_written()
+    t0 = time.perf_counter()
+    out["zoo"] = serve_example().main(zoo_root, device="cuda")
+    out["zoo"]["seconds"] = time.perf_counter() - t0
+    written = io_written() - w0
+    tally.add("4e zoo example (write calls)", written)
+    shutil.rmtree(zoo_root, ignore_errors=True)
+    log(f"4e (d) zoo example on the card: {len(out['zoo']['swaps'])} "
+        f"swap-ins and {len(out['zoo']['updates'])} delta updates in "
+        f"{out['zoo']['seconds']:.1f} s, {written} B passed to write calls")
+    out["launches"] = {k: _lib.LAUNCHES[k] for k in SERVING_KERNELS}
+    log(f"kernel launches over phase 4e: {out['launches']}")
+    for name, count in out["launches"].items():
+        if count <= 0:
+            fail(f"kernel {name} was never launched on the serving path")
+    out["cpu_vs_card"] = card_vs_cpu_decode()
+    out["decode_profiles"] = decode_profiles()
+    return out
+
+
+def decode_profiles() -> dict:
+    """4e, last: each served model's decode (``SERVE_SHAPE``'s batch,
+    weights from ``init_params``: the kernels do not depend on the values)
+    for ``PROFILE_SHAPE`` under ``torch.profiler`` — kernel time per step,
+    the device's busy share and the host's stream syncs."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L, transformer as T
+    from repro_torch.train.steps import generate
+    ps, pn = PROFILE_SHAPE
+    out: dict = {}
+    for arch in ("recurrentgemma-2b", SERVE_ARCH):
+        cfg = get_config(arch)
+        params = T.cast_params(T.init_params(cfg, seed=0, device="cuda"),
+                               L.dtype_of(cfg))
+        prompt = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (SERVE_SHAPE[0], ps)), dtype=torch.int32,
+            device="cuda")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            generate(cfg, params, prompt, steps=pn)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[arch] = device_profile(prof, wall, ps + pn - 1,
+                                   label=f"4e {arch} decode profile")
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 CHAOS_SEEDS = (0, 42)              # the gate seeds of the JAX package's
 CHAOS_MIN_FAULTS = 200             # tests/chaos/campaign.py
 # every kind class that must fire across the gate run (prefixes of
@@ -1846,7 +2183,7 @@ def main(argv=None) -> int:
         save_estimate(tensors, quant), PROBE_BYTES,
         state_bytes(flat_leaves(init_train_state(
             get_config("recurrentgemma-2b"), device="meta"))),
-        multi_writer_estimate(tensors, quant, WRITERS))
+        multi_writer_estimate(tensors, quant, WRITERS), zoo_estimate())
     log(f"write plan: {sum(plan.values())} B "
         f"({sum(plan.values()) / 2**30:.2f} GiB, limit "
         f"{WRITE_LIMIT / 2**30:.1f} GiB): " + ", ".join(
@@ -1865,11 +2202,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"checkpoint path: {time.perf_counter() - t0:.1f} s")
 
-    # phase 4: training path, full width and full depth
+    # phase 4: training path, full width and full depth; phase 4e, the
+    # serving path, swaps in its checkpoint
+    train_root = os.path.join(HERE, "build", "smoke_train")
     t0 = time.perf_counter()
-    training = run_training(os.path.join(HERE, "build", "smoke_train"),
-                            tally)
-    log(f"training path: {time.perf_counter() - t0:.1f} s")
+    try:
+        training, saved_params = run_training(train_root, tally)
+        log(f"training path: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        serving = serve_path(train_root, os.path.join(HERE, "build",
+                                                      "smoke_zoo"),
+                             tally, saved_params)
+        log(f"4e: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(train_root, ignore_errors=True)
+    del saved_params
     training["cpu_vs_card"] = cpu_vs_card()
     t0 = time.perf_counter()
     training["multilevel_resume"] = multilevel_resume(
@@ -1885,7 +2232,9 @@ def main(argv=None) -> int:
     tally.check("at the end")
     main_path["write_tally"] = dict(tally.parts, total=tally.total)
 
-    launches = dict(main_path["launches"], **training["launches"])
+    launches = {name: main_path["launches"].get(name, 0)
+                + training["launches"].get(name, 0)
+                + serving["launches"].get(name, 0) for name in KERNELS}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
@@ -1900,7 +2249,8 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, kernels=results, main_path=main_path,
-                           training=training, chaos=chaos_run), f, indent=1)
+                           training=training, serving=serving,
+                           chaos=chaos_run), f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,19 @@ parameter layout, key for key).
 
 Counterpart of ``repro/models/layers.py`` for the blocks this package runs:
 RMSNorm, rotary embeddings, GQA attention (qk-norm, qkv-bias, logit softcap,
-sliding window) without a decode cache, the gated MLP, and the RG-LRU block
-on its sequence path, whose recurrence is the ``kernels.rglru`` scan. Matmuls
-run in ``cfg.dtype`` with float32 softmax, normalisation and recurrence, as
-in the reference. Attention is written out (einsum + float32 softmax), not a
-fused attention call, so that its numbers follow the reference's.
+sliding window, KV cache), the gated MLP, and the RG-LRU block, whose
+recurrence on the sequence path is the ``kernels.rglru`` scan and in decode
+one step ``a * h + bx``. Matmuls run in ``cfg.dtype`` with float32 softmax,
+normalisation and recurrence, as in the reference. Attention is written out
+(einsum + float32 softmax), not a fused attention call, so that its numbers
+follow the reference's.
 
-Not here yet: MoE, mLSTM and sLSTM blocks and decode caches (ROADMAP queue
-A, "serving path" and "MoE, mLSTM, sLSTM and frontend blocks").
+Decode caches are updated IN PLACE: a block given a cache writes the new
+key/value (or recurrent state) into it, advances its ``pos``, and returns
+the same dict — the reference returns new arrays instead.
+
+Not here yet: MoE, mLSTM and sLSTM blocks (ROADMAP queue A, "MoE, mLSTM,
+sLSTM and frontend blocks").
 """
 
 from __future__ import annotations
@@ -23,8 +28,7 @@ import torch.nn.functional as F
 from ..kernels.rglru import rglru_scan
 from .config import ModelConfig
 
-SERVING_SLICE = "ROADMAP queue A5 (the serving path)"
-BLOCKS_SLICE = "ROADMAP queue A6 (MoE, mLSTM, sLSTM and frontend blocks)"
+BLOCKS_SLICE = "ROADMAP queue A4 (MoE, mLSTM, sLSTM and frontend blocks)"
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -53,12 +57,6 @@ def act_fn(name: str):
     # jax.nn.gelu defaults to the tanh approximation
     return {"silu": F.silu,
             "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
-
-
-def _no_cache(cache) -> None:
-    if cache is not None:
-        raise NotImplementedError(
-            f"decode caches are not ported yet: {SERVING_SLICE}")
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +100,7 @@ def rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA + variants), sequence path
+# Attention (GQA + variants), with optional KV cache
 # ---------------------------------------------------------------------------
 
 def attention_init(gen, cfg: ModelConfig, *, device="cpu"):
@@ -131,12 +129,15 @@ def _softcap(logits, cap: float):
 
 
 def attention_scores(q, k, v, mask, cfg: ModelConfig):
-    """q: (B,Sq,H,D), k/v: (B,Skv,KV,D), mask (B|1,Sq,Skv) -> (B,Sq,H,D)."""
+    """q: (B,Sq,H,D), k/v: (B,Skv,KV,D), mask (B|1,Sq,Skv) -> (B,Sq,H,D)
+    in v's dtype. q and k meet in their promoted dtype, as jnp.einsum's do
+    (gemma decode: a float32 query against the bf16 cache)."""
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
-    q = q.reshape(B, Sq, KV, G, D)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", q, k).float()
+    ct = torch.promote_types(q.dtype, k.dtype)
+    q = q.reshape(B, Sq, KV, G, D).to(ct)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q, k.to(ct)).float()
     logits = logits / math.sqrt(D)
     logits = _softcap(logits, cfg.attn_softcap)
     logits = torch.where(mask[:, None, None, :, :], logits,
@@ -179,8 +180,8 @@ def chunked_attention(q, k, v, cfg: ModelConfig, window: int,
 
 def attention_apply(params, x, cfg: ModelConfig, *, positions, local: bool,
                     cache=None):
-    """Pre-norm attention block with residual -> (x, None)."""
-    _no_cache(cache)
+    """Pre-norm attention block with residual -> (x, cache). cache:
+    dict(k, v, pos) or None; given one, S == 1 (decode)."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     B, S, _ = h.shape
     q = h @ params["wq"].to(h.dtype)
@@ -199,9 +200,45 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, local: bool,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if local else 0
-    out = chunked_attention(q, k, v, cfg, window)
-    out = out.reshape(B, S, cfg.q_dim) @ params["wo"].to(x.dtype)
-    return x + out, None
+    if cache is None:
+        out = chunked_attention(q, k, v, cfg, window)
+    else:
+        # decode: write into the ring (window > 0) or linear buffer, attend
+        # over it. Slot positions are analytic: ring slot s holds position
+        # cur - ((cur - s) mod W), linear slot s holds position s.
+        ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+        W = ck.shape[1]
+        slot = pos % W if window > 0 else torch.clamp(pos, max=W - 1)
+        slot = slot.reshape(1).long()
+        ck.index_copy_(1, slot, k.to(ck.dtype))
+        cv.index_copy_(1, slot, v.to(cv.dtype))
+        slots = torch.arange(W, dtype=torch.int32, device=x.device)[None, :]
+        cur = positions[:, :1]                                 # (B, 1)
+        if window > 0:
+            kpos = cur - torch.remainder(cur - slots, W)       # floor mod
+        else:
+            kpos = slots.expand(cur.shape[0], W)
+        valid = (kpos >= 0) & (kpos <= cur)
+        if window > 0:
+            valid &= kpos > cur - window
+        out = attention_scores(q, ck, cv, valid[:, None, :], cfg)
+        pos.add_(1)
+    # a bf16 cache under a float32 residual stream (gemma) promotes here
+    out = out.reshape(B, S, cfg.q_dim).to(x.dtype) @ params["wo"].to(x.dtype)
+    return x + out, cache
+
+
+def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int,
+                         local: bool, *, device="cpu"):
+    """k/v zeros of (batch, W, kv heads, head dim) in ``cfg.dtype``, W the
+    window for local blocks (at most ``max_len``), else ``max_len``; an
+    int32 scalar ``pos``."""
+    W = min(cfg.sliding_window, max_len) if (local and cfg.sliding_window) \
+        else max_len
+    shape = (batch, W, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+            "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -285,14 +322,23 @@ def _rglru_coeffs(params, u):
 
 def rglru_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
                 cache=None):
-    """Sequence path: the recurrence runs as the ``rglru_scan`` kernel."""
-    _no_cache(cache)
+    """Sequence path: the recurrence runs as the ``rglru_scan`` kernel.
+    Decode (cache dict(h)): one step from the cached state, written back."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     a, bx = _rglru_coeffs(params, h)                  # (B,S,r) float32
-    hh = rglru_scan(a, bx)
+    if cache is None:
+        hh = rglru_scan(a, bx)
+    else:
+        hh = a * cache["h"] + bx                      # (B,1,r) float32
+        cache["h"].copy_(hh)
     gate = F.silu(h @ params["wgate"].to(h.dtype))
     y = (hh.to(x.dtype) * gate) @ params["wout"].to(x.dtype)
     x = x + y
     h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
     x = x + mlp_apply(params["mlp"], h2, cfg)
-    return x, None
+    return x, cache
+
+
+def rglru_cache_init(cfg: ModelConfig, batch: int, *, device="cpu"):
+    return {"h": torch.zeros((batch, 1, cfg.lru_dim), dtype=torch.float32,
+                             device=device)}

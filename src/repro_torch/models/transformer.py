@@ -9,6 +9,11 @@ them in Python; with ``cfg.remat`` each group runs under
 ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint`` with the
 ``nothing_saveable`` policy: only the group's input is kept, and its
 activations are recomputed in the backward pass).
+
+Decode caches have the reference's tree too: ``b{j}_{kind}/{k,v,pos}`` or
+``b{j}_{kind}/h``, every leaf stacked over ``cfg.num_groups``.
+``decode_step`` writes each group's new entries into those stacked buffers
+in place and returns the same tree.
 """
 
 from __future__ import annotations
@@ -85,22 +90,52 @@ def cast_params(params, dtype: torch.dtype):
 
 
 # ---------------------------------------------------------------------------
-# forward pass
+# caches
 # ---------------------------------------------------------------------------
 
-def _apply_block(kind: str, params, x, cfg, positions):
+CACHE_INIT = {
+    ATTN: lambda cfg, b, m, device: L.attention_cache_init(
+        cfg, b, m, local=False, device=device),
+    ATTN_LOCAL: lambda cfg, b, m, device: L.attention_cache_init(
+        cfg, b, m, local=True, device=device),
+    RGLRU: lambda cfg, b, m, device: L.rglru_cache_init(cfg, b,
+                                                        device=device),
+}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device="cuda"):
+    """Stacked (per-group) decode caches, laid out as the reference's: on
+    ``device`` (the card by default)."""
+    require_ported(cfg)
+    groups = [{f"b{j}_{kind}": CACHE_INIT[kind](cfg, batch, max_len, device)
+               for j, kind in enumerate(cfg.block_pattern)}
+              for _ in range(cfg.num_groups)]
+    return _tree_map(lambda *xs: torch.stack(xs), *groups)
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def _apply_block(kind: str, params, x, cfg, positions, cache):
     if kind in ATTENTION_KINDS:
         x, _, aux = L.transformer_block_apply(
-            params, x, cfg, positions=positions, local=(kind == ATTN_LOCAL))
+            params, x, cfg, positions=positions, local=(kind == ATTN_LOCAL),
+            cache=cache)
         return x, aux
-    x, _ = L.rglru_apply(params, x, cfg, positions=positions)
+    x, _ = L.rglru_apply(params, x, cfg, positions=positions, cache=cache)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _group(x, positions, gparams, cfg: ModelConfig):
+def _group(x, positions, gparams, cfg: ModelConfig, gcache=None):
+    """One group of blocks -> (x, aux); ``gcache`` (decode) is updated in
+    place."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, kind in enumerate(cfg.block_pattern):
-        x, a = _apply_block(kind, gparams[f"b{j}_{kind}"], x, cfg, positions)
+        name = f"b{j}_{kind}"
+        x, a = _apply_block(kind, gparams[name], x, cfg, positions,
+                            None if gcache is None else gcache[name])
         aux = aux + a
     return x, aux
 
@@ -158,3 +193,16 @@ def forward(params, cfg: ModelConfig, tokens, frontend_embeds=None,
     if return_hidden:
         return x, aux
     return _unembed(params, cfg, x), aux
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
+    """One-token decode: tokens (B,1), pos (B,1) int32 absolute positions.
+
+    ``cache`` is the stacked per-group cache from ``init_cache``; it is
+    updated in place. Returns (logits (B,1,V) float32, cache)."""
+    require_ported(cfg)
+    x = _embed(params, cfg, tokens)
+    for gparams, gcache in zip(_unstack(params["blocks"], cfg.num_groups),
+                               _unstack(cache, cfg.num_groups)):
+        x, _ = _group(x, pos, gparams, cfg, gcache)
+    return _unembed(params, cfg, x), cache

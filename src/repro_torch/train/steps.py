@@ -1,4 +1,5 @@
-"""Train-step factory: forward, backward and AdamW on one device.
+"""Step factories: training (forward, backward and AdamW on one device),
+prefill and serving.
 
 Counterpart of ``repro/train/steps.py``. ``make_train_step`` returns a
 function ``train_step(state, batch) -> (state, metrics)`` that updates
@@ -8,9 +9,14 @@ state buffers to the jitted step instead. Gradients come from
 left attached to the state between steps; grads of bf16 params are bf16 as
 in the reference. The sharding arguments of the reference
 (``grad_shardings``, ``act_sharding``) wait for the sharding slice.
+``make_prefill_step`` and ``make_serve_step`` run under
+``torch.inference_mode()``: no remat, and the RG-LRU scan runs forward only.
+``generate`` is the serving loop over ``make_serve_step``.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -133,3 +139,51 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
         return state, {"loss": loss, **extras, **om}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Inference prefill: returns only the LAST position's logits (B,1,V)
+    float32 — what the decoder needs to emit its first token."""
+    def prefill(params, batch):
+        with torch.inference_mode():
+            h, _ = T.forward(params, cfg, batch["tokens"],
+                             batch.get("frontend_embeds"), return_hidden=True)
+            return T._unembed(params, cfg, h[:, -1:, :])
+    return prefill
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One new token against an existing decode cache (updated in place)."""
+    def serve_step(params, cache, tokens, pos):
+        with torch.inference_mode():
+            return T.decode_step(params, cfg, cache, tokens, pos)
+    return serve_step
+
+
+def generate(cfg: ModelConfig, params, prompt, steps=16, record=None):
+    """Greedy decode ``steps`` tokens from a (B, S) int32 prompt batch: the
+    prompt is teacher-forced through the decode cache, then each token is
+    the argmax of the last logits. ``record`` (a dict), when given, gains
+    ``prompt_logits`` (the logits at the last prompt position) and
+    ``step_s`` (the wall of every decode step, each synchronised)."""
+    B, S = prompt.shape
+    cache = T.init_cache(cfg, B, max_len=S + steps, device=prompt.device)
+    serve = make_serve_step(cfg)
+    tok = prompt[:, :1]
+    out = []
+    for t in range(S + steps - 1):
+        t0 = time.perf_counter()
+        pos = torch.full((B, 1), t, dtype=torch.int32, device=prompt.device)
+        logits, cache = serve(params, cache, tok, pos)
+        if t + 1 < S:
+            tok = prompt[:, t + 1:t + 2]        # teacher-force the prompt
+        else:
+            tok = logits.argmax(dim=-1).to(torch.int32)
+            out.append(tok)
+        if record is not None:
+            if t == S - 1:
+                record["prompt_logits"] = logits
+            if prompt.device.type == "cuda":
+                torch.cuda.synchronize(prompt.device)
+            record.setdefault("step_s", []).append(time.perf_counter() - t0)
+    return torch.cat(out, dim=1)

@@ -91,15 +91,15 @@ def test_a_dtype_without_a_numpy_name_is_refused(tmp_path):
         assert m.all_steps() == []
 
 
-# the layers carried from repro.core without a change (their copies must
-# not drift; edited carries — faults, resharding, remote — are held by
-# behaviour)
+# the layers carried from repro.core, and the linter from repro.analysis
+# (named relative to core), without a change (their copies must not drift;
+# edited carries — faults, resharding, remote — are held by behaviour)
 CARRIED = ["trace.py", "buffers.py", "uring.py", "manifest.py",
            "io_engine.py", "aggregation.py", "engines/base.py",
            "engines/aggregated.py", "engines/__init__.py",
            "engines/datastates.py", "engines/snapshot.py",
            "engines/torchsave.py", "engines/remote.py", "tiered.py",
-           "multilevel.py"]
+           "multilevel.py", "../analysis/crlint.py"]
 
 
 @pytest.mark.parametrize("name", CARRIED)

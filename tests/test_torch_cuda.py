@@ -1,9 +1,9 @@
 """The port on the card: the CUDA kernels against their plain versions,
-CUDA-resident saves against CPU-resident ones, and narrow train steps on the
-card against the same steps on the CPU, and CUDA states through every
-engine and storage tier. Marked ``gpu``; each test
-skips where there is no card (decided at run time). This file imports no
-JAX, so it runs as it is on a machine that has only PyTorch:
+CUDA-resident saves against CPU-resident ones, narrow train steps and a
+narrow decode on the card against the same on the CPU, CUDA states through
+every engine and storage tier, and the model-swap serving example. Marked
+``gpu``; each test skips where there is no card (decided at run time). This
+file imports no JAX, so it runs as it is on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
@@ -279,6 +279,84 @@ def test_narrow_train_steps_on_card_match_cpu(cuda):
 NARROW = dict(num_layers=3, block_pattern=("rglru", "rglru", "attn_local"),
               d_model=128, num_heads=2, num_kv_heads=1, head_dim=64,
               d_ff=256, lru_dim=200, vocab_size=512, sliding_window=16)
+
+
+def _narrow_serving(cuda):
+    """(cfg, CPU params, card params, prompt (2, 24) on the CPU) of the
+    narrow float32 recurrentgemma."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.serialization import tree_map_with_path
+    from repro_torch.train.steps import init_train_state
+    cfg = get_config("recurrentgemma-2b").replace(dtype="float32", **NARROW)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = init_train_state(cfg, seed=0, device="cpu")["params"]
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (2, 24)).astype(np.int32))
+    return cfg, params, tree_map_with_path(lambda _p, t: t.to(cuda),
+                                           params), prompt
+
+
+def test_narrow_decode_on_card_matches_cpu(cuda):
+    """24 decode steps (the 16-token ring wraps) of the narrow float32
+    recurrentgemma on the card against the CPU: logits and every cache
+    leaf, rtol 1e-4 / atol 1e-5 (cuBLAS and the CPU sum in other orders);
+    ``pos`` exact."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_serve_step
+    cfg, params, on_card, prompt = _narrow_serving(cuda)
+    serve = make_serve_step(cfg)
+    caches = {"cpu": T.init_cache(cfg, 2, 24, device="cpu"),
+              "cuda": T.init_cache(cfg, 2, 24, device=cuda)}
+    for t in range(24):
+        pos = torch.full((2, 1), t, dtype=torch.int32)
+        want, caches["cpu"] = serve(params, caches["cpu"], prompt[:, t:t + 1],
+                                    pos)
+        got, caches["cuda"] = serve(on_card, caches["cuda"],
+                                    prompt[:, t:t + 1].to(cuda), pos.to(cuda))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    for (k, want), (_, got) in zip(_leaves(caches["cpu"]),
+                                   _leaves(caches["cuda"])):
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5,
+                                   msg=k)
+
+
+def test_prefill_launches_the_scan_once_per_rglru_block(cuda):
+    """Prefill runs under inference mode: one forward B5 launch per RG-LRU
+    block (2 here, 18 at full width), no remat or reverse; decode steps the
+    recurrence with torch ops and launches none. The prefill's last logits
+    match the CPU's."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+    cfg, params, on_card, prompt = _narrow_serving(cuda)
+    _lib.reset_launches()
+    got = make_prefill_step(cfg)(on_card, {"tokens": prompt.to(cuda)})
+    assert _lib.LAUNCHES["rglru_scan"] == 2
+    cache = T.init_cache(cfg, 2, 4, device=cuda)
+    serve = make_serve_step(cfg)
+    for t in range(4):
+        serve(on_card, cache, prompt[:, t:t + 1].to(cuda),
+              torch.full((2, 1), t, dtype=torch.int32, device=cuda))
+    assert _lib.LAUNCHES["rglru_scan"] == 2
+    want = make_prefill_step(cfg)(params, {"tokens": prompt})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_serve_swap_example_on_the_card(cuda, tmp_path):
+    """``examples/torch_serve_swap.main`` on the card: every swap-in lands
+    there, and the delta updates fingerprint with B3."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_swap", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "examples", "torch_serve_swap.py"))
+    zoo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(zoo)
+    _lib.reset_launches()
+    out = zoo.main(str(tmp_path), device="cuda")
+    assert len(out["swaps"]) == 9
+    assert _lib.LAUNCHES["fingerprint_chunks"] > 0
+    for u in out["updates"]:
+        assert 0 < u["chunks_dirty"] < u["chunks_total"]
 
 
 def _leaves(tree, prefix=""):

@@ -217,14 +217,19 @@ def test_gemma_embedding_scale_promotes_to_float32():
 
 
 def test_unported_features_raise():
+    """xLSTM and MoE blocks still raise; the RG-LRU cache branch is ported
+    and returns the stepped ``{"h"}`` state."""
     _, pc = configs("float32")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A4"):
         T.init_params(get_config("xlstm-350m").scaled_down(), device="meta")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A4"):
         T.init_params(get_config("olmoe-1b-7b").scaled_down(), device="meta")
-    x = torch.zeros((1, 4, 128))
-    with pytest.raises(NotImplementedError, match="A5"):
-        L.rglru_apply({}, x, pc, cache={"h": x})
+    params = _group0(T.init_params(pc, device="cpu")["blocks"])["b0_rglru"]
+    x = torch.zeros((2, 1, 128))
+    y, cache = L.rglru_apply(params, x, pc, cache=L.rglru_cache_init(pc, 2))
+    assert y.shape == x.shape and list(cache) == ["h"]
+    assert cache["h"].shape == (2, 1, pc.lru_dim)
+    assert cache["h"].dtype == torch.float32
 
 
 def test_init_params_defaults_to_the_card():
