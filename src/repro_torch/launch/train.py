@@ -4,10 +4,11 @@ Counterpart of ``repro/launch/train.py``: a training loop with this
 package's checkpoint engine in it — periodic async checkpoints, kill-resume
 fault tolerance, engine/strategy selection, and a report of the checkpoint
 overheads. Runs on the card by default (``--device cpu`` for a reduced run
-on the CPU); ``--full`` trains the full-size config (recurrentgemma-2b fits
-one 80 GB H100). ``--remote-dir`` adds a level-1 directory (two-level
-checkpointing, resumable after the loss of ``--ckpt-dir``); ``--mesh`` of the
-reference waits for the sharding slice.
+on the CPU); the default architecture is xlstm-350m, as in the reference;
+``--full`` trains the full-size config (xlstm-350m and recurrentgemma-2b
+each fit one 80 GB H100). ``--remote-dir`` adds a level-1 directory
+(two-level checkpointing, resumable after the loss of ``--ckpt-dir``);
+``--mesh`` of the reference waits for the sharding slice.
 """
 
 from __future__ import annotations
@@ -25,11 +26,17 @@ from ..optim import AdamWConfig
 from ..train.trainer import Trainer, TrainerConfig
 
 
-def build_trainer(args) -> Trainer:
+def build_config(args):
+    """The model config the arguments select (reduced unless ``--full``)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.scaled_down(layers=args.layers, width_div=args.width_div,
                               vocab=args.vocab)
+    return cfg
+
+
+def build_trainer(args) -> Trainer:
+    cfg = build_config(args)
     tcfg = TrainerConfig(
         steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
         ckpt_engine=args.engine, async_ckpt=not args.sync_ckpt,
@@ -46,9 +53,9 @@ def build_trainer(args) -> Trainer:
                    engine_config=eng_cfg, device=args.device)
 
 
-def main(argv=None) -> None:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="recurrentgemma-2b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="xlstm-350m")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--steps", type=int, default=200)
@@ -77,7 +84,11 @@ def main(argv=None) -> None:
     ap.add_argument("--queue-depth", type=int, default=64)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--json-out", default="")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> None:
+    args = parser().parse_args(argv)
 
     trainer = build_trainer(args)
     try:

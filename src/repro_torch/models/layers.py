@@ -1,11 +1,13 @@
 """Functional layers over plain dict trees of tensors (the JAX package's
 parameter layout, key for key).
 
-Counterpart of ``repro/models/layers.py`` for the blocks this package runs:
-RMSNorm, rotary embeddings, GQA attention (qk-norm, qkv-bias, logit softcap,
-sliding window, KV cache), the gated MLP, and the RG-LRU block, whose
-recurrence on the sequence path is the ``kernels.rglru`` scan and in decode
-one step ``a * h + bx``. Matmuls run in ``cfg.dtype`` with float32 softmax,
+Counterpart of ``repro/models/layers.py``, every block of it: RMSNorm,
+rotary embeddings, GQA attention (qk-norm, qkv-bias, logit softcap, sliding
+window, KV cache), the gated MLP, the capacity-based top-k MoE, the RG-LRU
+block, whose recurrence on the sequence path is the ``kernels.rglru`` scan
+and in decode one step ``a * h + bx``, and the xLSTM blocks (mLSTM: matrix
+memory, quadratic or chunkwise on a sequence; sLSTM: scalar memory, a loop
+over time). Matmuls run in ``cfg.dtype`` with float32 softmax,
 normalisation and recurrence, as in the reference. Attention is written out
 (einsum + float32 softmax), not a fused attention call, so that its numbers
 follow the reference's.
@@ -13,9 +15,6 @@ follow the reference's.
 Decode caches are updated IN PLACE: a block given a cache writes the new
 key/value (or recurrent state) into it, advances its ``pos``, and returns
 the same dict — the reference returns new arrays instead.
-
-Not here yet: MoE, mLSTM and sLSTM blocks (ROADMAP queue A, "MoE, mLSTM,
-sLSTM and frontend blocks").
 """
 
 from __future__ import annotations
@@ -27,8 +26,6 @@ import torch.nn.functional as F
 
 from ..kernels.rglru import rglru_scan
 from .config import ModelConfig
-
-BLOCKS_SLICE = "ROADMAP queue A4 (MoE, mLSTM, sLSTM and frontend blocks)"
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -259,29 +256,99 @@ def mlp_apply(params, x, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Transformer block = attention + MLP
+# Mixture of Experts (top-k, capacity-based dropping)
+# ---------------------------------------------------------------------------
+
+def moe_init(gen, cfg: ModelConfig, *, device="cpu"):
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    return {"router": dense_init(gen, (d, E), 0.02, device=device),
+            "wg": dense_init(gen, (E, d, f), device=device),
+            "wu": dense_init(gen, (E, d, f), device=device),
+            "wd": dense_init(gen, (E, f, d), device=device)}
+
+
+def moe_capacity(T: int, cfg: ModelConfig, capacity_factor: float) -> int:
+    """Expert slots C = max(ceil(T·k/E·cf), min(T, 4k)): the floor keeps
+    tiny (decode) batches from dropping."""
+    k = cfg.experts_per_token
+    return max(int(math.ceil(T * k / cfg.num_experts * capacity_factor)),
+               min(T, 4 * k))
+
+
+def moe_route(probs, cfg: ModelConfig, capacity: int):
+    """Top-k routing of (T, E) float32 router probabilities -> (gates,
+    idx, pos, keep), each (T·k,) in token-major order: the normalised gate,
+    the expert, the slot in that expert (a running count over the tokens,
+    drops clamped to ``capacity - 1``) and whether the slot is within
+    capacity."""
+    gates, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    e_flat = idx.reshape(-1)
+    onehot = F.one_hot(e_flat, cfg.num_experts)              # (T*k, E)
+    pos = ((onehot.cumsum(0) - 1) * onehot).sum(-1)
+    keep = pos < capacity
+    return gates.reshape(-1), e_flat, pos.clamp_max(capacity - 1), keep
+
+
+def moe_apply(params, x, cfg: ModelConfig,
+              capacity_factor: float | None = None):
+    """x: (B,S,d) -> ((B,S,d), aux loss): GShard-style dropping MoE. Tokens
+    are dispatched into an (E, C, d) buffer, the experts run as batched
+    GEMMs over it, and each token sums its k gated expert outputs. The
+    Switch load-balance loss is E · Σ_e f_e · p_e."""
+    if capacity_factor is None:
+        capacity_factor = cfg.moe_capacity_factor
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    xt = x.reshape(T, d)
+    logits = (xt @ params["router"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)                    # (T, E)
+    C = moe_capacity(T, cfg, capacity_factor)
+    g_flat, e_flat, pos, keep = moe_route(probs, cfg, C)
+    me = probs.mean(0)
+    ce = F.one_hot(e_flat.reshape(T, k)[:, 0], E).float().mean(0)
+    aux = E * torch.sum(me * ce)
+
+    t_flat = torch.arange(T, device=x.device).repeat_interleave(k)
+    contrib = xt[t_flat].masked_fill(~keep[:, None], 0)
+    buf = torch.zeros((E, C, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((e_flat, pos), contrib, accumulate=True)
+    a = act_fn(cfg.act)
+    h = a(torch.bmm(buf, params["wg"].to(x.dtype))) * \
+        torch.bmm(buf, params["wu"].to(x.dtype))
+    h = torch.bmm(h, params["wd"].to(x.dtype))               # (E, C, d)
+    y = h[e_flat, pos] * g_flat[:, None].to(x.dtype)
+    y = y.masked_fill(~keep[:, None], 0)
+    # t_flat repeats each token k times in a row, so the combine is a sum
+    # over k (no scatter-add: deterministic on the card)
+    return y.reshape(T, k, d).sum(1).reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Transformer block = attention + (MLP | MoE)
 # ---------------------------------------------------------------------------
 
 def transformer_block_init(gen, cfg: ModelConfig, *, device="cpu"):
-    if cfg.is_moe:
-        raise NotImplementedError(f"MoE blocks are not ported yet: "
-                                  f"{BLOCKS_SLICE}")
     p = attention_init(gen, cfg, device=device)
-    p["mlp"] = mlp_init(gen, cfg, device=device)
+    if cfg.is_moe:
+        p["moe"] = moe_init(gen, cfg, device=device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg, device=device)
     return p
 
 
 def transformer_block_apply(params, x, cfg: ModelConfig, *, positions,
                             local: bool, cache=None):
-    if cfg.is_moe:
-        raise NotImplementedError(f"MoE blocks are not ported yet: "
-                                  f"{BLOCKS_SLICE}")
     x, new_cache = attention_apply(params, x, cfg, positions=positions,
                                    local=local, cache=cache)
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    y = mlp_apply(params["mlp"], h, cfg)
-    return x + y, new_cache, torch.zeros((), dtype=torch.float32,
-                                         device=x.device)
+    if cfg.is_moe:
+        y, aux = moe_apply(params["moe"], h, cfg)
+    else:
+        y = mlp_apply(params["mlp"], h, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -342,3 +409,250 @@ def rglru_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
 def rglru_cache_init(cfg: ModelConfig, batch: int, *, device="cpu"):
     return {"h": torch.zeros((batch, 1, cfg.lru_dim), dtype=torch.float32,
                              device=device)}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block (xLSTM) — matrix memory; quadratic or chunkwise on a sequence
+# ---------------------------------------------------------------------------
+
+NEG = -1e30   # log(0) stand-in of the chunkwise carry that survives arithmetic
+
+
+def mlstm_init(gen, cfg: ModelConfig, *, device="cpu"):
+    d = cfg.d_model
+    up = int(cfg.proj_factor * d)
+    hd = up // cfg.num_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "w_up1": dense_init(gen, (d, up), device=device),
+        "w_up2": dense_init(gen, (d, up), device=device),
+        "w_down": dense_init(gen, (up, d), device=device),
+        "wq": dense_init(gen, (up, up), device=device),
+        "wk": dense_init(gen, (up, up), device=device),
+        "wv": dense_init(gen, (up, up), device=device),
+        "w_igate": dense_init(gen, (up, cfg.num_heads), 0.02, device=device),
+        "b_igate": torch.zeros((cfg.num_heads,), **f32),
+        "w_fgate": dense_init(gen, (up, cfg.num_heads), 0.02, device=device),
+        "b_fgate": torch.full((cfg.num_heads,), 3.0, **f32),
+        "norm1": rmsnorm_init(cfg, device=device),
+        "out_norm": rmsnorm_init(cfg, hd, device=device),
+    }
+
+
+def _mlstm_qkv(params, h, cfg: ModelConfig):
+    """h: (B,S,up) -> q, v (B,S,H,hd) in h's dtype; k (B,S,H,hd) float32;
+    log input gate and log-sigmoid forget gate (B,S,H) float32. The
+    reference divides k by a numpy float64 scalar, which JAX does not treat
+    as weak: k is promoted to float32 even for a bf16 model, and so here."""
+    B, S, up = h.shape
+    H = cfg.num_heads
+    hd = up // H
+    q = (h @ params["wq"].to(h.dtype)).reshape(B, S, H, hd)
+    k = (h @ params["wk"].to(h.dtype)).reshape(B, S, H, hd).float() / \
+        math.sqrt(hd)
+    v = (h @ params["wv"].to(h.dtype)).reshape(B, S, H, hd)
+    logi = (h @ params["w_igate"].to(h.dtype)).float() + params["b_igate"]
+    logf = F.logsigmoid((h @ params["w_fgate"].to(h.dtype)).float()
+                        + params["b_fgate"])
+    return q, k, v, logi, logf
+
+
+def _mlstm_intra(q, k, v, logi, logf):
+    """Unnormalised in-chunk mLSTM pieces, for exact chunkwise merging ->
+    (num (B,S,H,D), den (B,S,H), m (B,S,H), F (B,S,H)): num and den carry
+    the stabiliser exp(-m), and F is the in-chunk cumulative log forget."""
+    F_ = torch.cumsum(logf, dim=1)                            # (B,S,H)
+    # log decay D[t,s] = F_t - F_s + i_s for s <= t
+    dmat = F_[:, :, None, :] - F_[:, None, :, :] + logi[:, None, :, :]
+    S = q.shape[1]
+    later = torch.ones((S, S), dtype=torch.bool,
+                       device=q.device).triu(1)[None, :, :, None]
+    dmat = dmat.masked_fill(later, float("-inf"))             # (B,T,S,H)
+    m = dmat.amax(dim=2)                                      # (B,T,H)
+    dexp = torch.exp(dmat - m[:, :, None, :])
+    scores = torch.einsum("bthd,bshd->btsh", q.float(), k.float())
+    w = scores * dexp
+    num = torch.einsum("btsh,bshd->bthd", w, v.float())
+    return num, w.sum(dim=2), m, F_
+
+
+def mlstm_sequence(q, k, v, logi, logf):
+    """Stabilised quadratic-parallel mLSTM: q, k, v (B,S,H,D); logi, logf
+    (B,S,H) -> (B,S,H,D) float32 (the xLSTM paper's parallel form)."""
+    num, den, m, _ = _mlstm_intra(q, k, v, logi, logf)
+    norm = torch.maximum(den.abs(), torch.exp(-m))
+    return num / (norm[..., None] + 1e-6)
+
+
+def _mlstm_chunked(q, k, v, logi, logf, chunk: int):
+    """EXACT chunkwise mLSTM: quadratic within chunks of ``chunk`` tokens,
+    a stabilised (C, N, M) carry across them (C = Σ_s k_s v_sᵀ
+    exp(F_end − F_s + i_s − M), N likewise, M the running max exponent at
+    the chunk boundary, starting from ``NEG``). S must be a multiple of
+    ``chunk``, as the reference asserts."""
+    B, S, H, D = q.shape
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the mLSTM "
+                         f"chunk {chunk}")
+    C = torch.zeros((B, H, D, D), dtype=torch.float32, device=q.device)
+    N = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
+    M = torch.full((B, H), NEG, dtype=torch.float32, device=q.device)
+    outs = []
+    for a in range(0, S, chunk):
+        qc, kc, vc = q[:, a:a + chunk], k[:, a:a + chunk], v[:, a:a + chunk]
+        lic, lfc = logi[:, a:a + chunk], logf[:, a:a + chunk]
+        num_i, den_i, m_i, F_ = _mlstm_intra(qc, kc, vc, lic, lfc)
+        m_i = m_i.clamp_min(NEG)
+        qf = qc.float()
+        # per-position exponent of the carried state's contribution
+        m_state = F_ + M[:, None, :]                          # (B,c,H)
+        m_tot = torch.maximum(m_i, m_state)
+        a_i = torch.exp(m_i - m_tot)
+        a_s = torch.exp(m_state - m_tot)
+        num = num_i * a_i[..., None] + \
+            a_s[..., None] * torch.einsum("bchd,bhde->bche", qf, C)
+        den = den_i * a_i + a_s * torch.einsum("bchd,bhd->bch", qf, N)
+        outs.append(num / (torch.maximum(den.abs(), torch.exp(-m_tot))[
+            ..., None] + 1e-6))
+        # the state at the chunk's end, re-stabilised at M_new
+        Ftot = F_[:, -1]                                      # (B,H)
+        decay = Ftot[:, None, :] - F_ + lic                   # (B,c,H)
+        M_new = torch.maximum(M + Ftot, decay.amax(dim=1))
+        kc_f = kc.float() * torch.exp(decay - M_new[:, None, :])[..., None]
+        scale_old = torch.exp(M + Ftot - M_new)
+        C = C * scale_old[..., None, None] + \
+            torch.einsum("bchd,bche->bhde", kc_f, vc.float())
+        N = N * scale_old[..., None] + kc_f.sum(dim=1)
+        M = M_new
+    return torch.cat(outs, dim=1)
+
+
+def mlstm_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
+                cache=None, chunk: int = 256):
+    """Sequence path: the quadratic form for S <= ``chunk``, else the
+    chunkwise one. Decode (cache dict(C, N, M), S == 1): one recurrent step
+    from the cached state, written back in place."""
+    h0 = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    u1 = h0 @ params["w_up1"].to(x.dtype)
+    u2 = F.silu(h0 @ params["w_up2"].to(x.dtype))
+    q, k, v, logi, logf = _mlstm_qkv(params, u1, cfg)
+    B, S, H, D = q.shape
+    if cache is None:
+        if S <= chunk:
+            out = mlstm_sequence(q, k, v, logi, logf)
+        else:
+            out = _mlstm_chunked(q, k, v, logi, logf, chunk)
+    else:
+        Cst, Nst, Mst = cache["C"], cache["N"], cache["M"]
+        lf, li = logf[:, 0], logi[:, 0]                       # (B,H)
+        m_new = torch.maximum(lf + Mst, li)
+        alpha = torch.exp(lf + Mst - m_new)[..., None]
+        beta = torch.exp(li - m_new)[..., None]
+        k1, v1, q1 = k[:, 0], v[:, 0], q[:, 0]                # (B,H,D)
+        Cst.copy_(Cst * alpha[..., None] +
+                  beta[..., None] * k1[..., :, None] * v1[..., None, :])
+        Nst.copy_(Nst * alpha + beta * k1)
+        Mst.copy_(m_new)
+        qf = q1.float()
+        num = torch.einsum("bhd,bhde->bhe", qf, Cst)
+        den = torch.maximum(torch.einsum("bhd,bhd->bh", qf, Nst).abs(),
+                            torch.exp(-m_new))
+        out = (num / (den[..., None] + 1e-6))[:, None]        # (B,1,H,D)
+    out = rmsnorm(params["out_norm"], out, cfg.norm_eps)
+    out = out.reshape(B, S, H * D).to(x.dtype) * u2
+    return x + out @ params["w_down"].to(x.dtype), cache
+
+
+def mlstm_cache_init(cfg: ModelConfig, batch: int, *, device="cpu"):
+    """C (B,H,hd,hd), N (B,H,hd) and M (B,H), float32 zeros — M starts at 0
+    here, as in the reference, where the chunkwise carry starts at NEG."""
+    up = int(cfg.proj_factor * cfg.d_model)
+    hd = up // cfg.num_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros((batch, cfg.num_heads, hd, hd), **f32),
+            "N": torch.zeros((batch, cfg.num_heads, hd), **f32),
+            "M": torch.zeros((batch, cfg.num_heads), **f32)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block (xLSTM) — scalar memory, a loop over time
+# ---------------------------------------------------------------------------
+
+SLSTM_GATES = ("i", "f", "z", "o")
+
+
+def slstm_init(gen, cfg: ModelConfig, *, device="cpu"):
+    d = cfg.d_model
+    up = int(cfg.proj_factor * d)
+    p = {"norm1": rmsnorm_init(cfg, device=device)}
+    for g in SLSTM_GATES:
+        p[f"w_{g}"] = dense_init(gen, (d, d), device=device)
+    for g in SLSTM_GATES:
+        p[f"r_{g}"] = dense_init(gen, (d, d), 0.02, device=device)
+        p[f"b_{g}"] = torch.full((d,), 1.0 if g == "f" else 0.0,
+                                 dtype=torch.float32, device=device)
+    p["w_up"] = dense_init(gen, (d, up), device=device)
+    p["w_down"] = dense_init(gen, (up, d), device=device)
+    return p
+
+
+def _slstm_step(r, carry, pre_x, one):
+    """One step: ``pre_x`` (B,4d) float32, the input's gate pre-activations
+    with their biases; ``r`` (d,4d), the recurrent weights of the gates
+    i, f, z, o side by side; carry (c, n, m, h) -> (new carry, h). ``one``
+    is a float32 1 for the normaliser's floor: ``torch.maximum`` splits the
+    gradient on a tie (n is exactly 1 whenever the input gate sets m) as
+    ``jnp.maximum`` does, where ``clamp`` would pass all of it to n."""
+    c, n, m, h = carry
+    it, ft, zt, ot = (pre_x + h @ r).chunk(4, dim=-1)
+    zt = torch.tanh(zt)
+    ot = torch.sigmoid(ot)
+    logf = F.logsigmoid(ft)
+    m_new = torch.maximum(logf + m, it)
+    i_ = torch.exp(it - m_new)
+    f_ = torch.exp(logf + m - m_new)
+    c = f_ * c + i_ * zt
+    n = f_ * n + i_
+    h = ot * c / torch.maximum(n, one)
+    return (c, n, m_new, h), h
+
+
+def slstm_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
+                cache=None):
+    """The recurrence runs in float32, with the gate weights and biases
+    recast to float32 as in the reference (``w_up`` and ``w_down`` stay in
+    the model's dtype). The input's share of the four gate pre-activations,
+    ``h0 @ w_g + b_g``, is one float32 GEMM over all (B·S) tokens before
+    the loop over time (the reference forms it step by step: the same
+    math); each step adds ``h_{t-1} @ r_g``. Decode (cache dict(c, n, m,
+    h), S == 1): one step, written back in place."""
+    h0 = rmsnorm(params["norm1"], x, cfg.norm_eps).float()
+    B, _, d = h0.shape
+    w = torch.cat([params[f"w_{g}"].float() for g in SLSTM_GATES], dim=1)
+    r = torch.cat([params[f"r_{g}"].float() for g in SLSTM_GATES], dim=1)
+    b = torch.cat([params[f"b_{g}"].float() for g in SLSTM_GATES])
+    pre_x = h0 @ w + b                                        # (B,S,4d)
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    if cache is None:
+        zero = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+        carry = (zero, zero, zero, zero)
+        hs = []
+        # unbind, not pre_x[:, t]: the backward of S slices would add S
+        # zero-filled (B,S,4d) grads; unbind's stacks them once
+        for px in pre_x.unbind(1):
+            carry, h = _slstm_step(r, carry, px, one)
+            hs.append(h)
+        out = torch.stack(hs, dim=1)
+    else:
+        carry = tuple(cache[k] for k in ("c", "n", "m", "h"))
+        new, h = _slstm_step(r, carry, pre_x[:, 0], one)
+        for old, val in zip(carry, new):
+            old.copy_(val)
+        out = h[:, None, :]
+    up = act_fn("gelu")(out.to(x.dtype) @ params["w_up"].to(x.dtype))
+    return x + up @ params["w_down"].to(x.dtype), cache
+
+
+def slstm_cache_init(cfg: ModelConfig, batch: int, *, device="cpu"):
+    return {k: torch.zeros((batch, cfg.d_model), dtype=torch.float32,
+                           device=device) for k in ("c", "n", "m", "h")}

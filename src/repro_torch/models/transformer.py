@@ -10,8 +10,10 @@ them in Python; with ``cfg.remat`` each group runs under
 ``nothing_saveable`` policy: only the group's input is kept, and its
 activations are recomputed in the backward pass).
 
-Decode caches have the reference's tree too: ``b{j}_{kind}/{k,v,pos}`` or
-``b{j}_{kind}/h``, every leaf stacked over ``cfg.num_groups``.
+Decode caches have the reference's tree too: ``b{j}_{kind}/{k,v,pos}``,
+``b{j}_{kind}/h`` (RG-LRU), ``b{j}_{kind}/{C,N,M}`` (mLSTM) or
+``b{j}_{kind}/{c,n,m,h}`` (sLSTM), every leaf stacked over
+``cfg.num_groups``.
 ``decode_step`` writes each group's new entries into those stacked buffers
 in place and returns the same tree.
 """
@@ -24,21 +26,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
-from .config import ATTN, ATTN_LOCAL, ATTENTION_KINDS, RGLRU, ModelConfig
+from .config import (ATTN, ATTN_LOCAL, ATTENTION_KINDS, MLSTM, RGLRU, SLSTM,
+                     ModelConfig)
 
 BLOCK_INIT = {ATTN: L.transformer_block_init,
               ATTN_LOCAL: L.transformer_block_init,
+              MLSTM: L.mlstm_init,
+              SLSTM: L.slstm_init,
               RGLRU: L.rglru_init}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for the block kinds and features this package does not run."""
-    missing = [k for k in cfg.block_pattern if k not in BLOCK_INIT]
-    if missing or cfg.is_moe or cfg.frontend:
-        what = sorted(set(missing)) + (["moe"] if cfg.is_moe else []) + \
-            ([cfg.frontend] if cfg.frontend else [])
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(what)} not ported yet: {L.BLOCKS_SLICE}")
 
 
 def _tree_map(fn, *trees):
@@ -52,7 +47,6 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     seeded ``torch.Generator`` on ``device`` (the card by default; shapes
     only on ``meta``).
     Per-group block params are stacked on axis 0."""
-    require_ported(cfg)
     device = torch.device(device)
     gen = None
     if device.type != "meta":
@@ -66,6 +60,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     if not cfg.tie_embeddings:
         params["head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                       device=device)
+    if cfg.frontend:
+        params["frontend_proj"] = L.dense_init(
+            gen, (cfg.frontend_dim, cfg.d_model), device=device)
     groups = []
     for _ in range(cfg.num_groups):
         groups.append({f"b{j}_{kind}": BLOCK_INIT[kind](gen, cfg,
@@ -76,7 +73,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
 
 
 def keeps_f32(name: str) -> bool:
-    """Leaves ``cast_params`` leaves in float32: norms, gate biases, Λ."""
+    """Leaves ``cast_params`` leaves in float32: norms, gate biases
+    (RG-LRU's ``b_*_gate``, mLSTM's ``b_igate``/``b_fgate``, sLSTM's
+    ``b_{i,f,z,o}``), Λ."""
     return name == "scale" or name.startswith("b_") or name == "a_param"
 
 
@@ -98,6 +97,10 @@ CACHE_INIT = {
         cfg, b, m, local=False, device=device),
     ATTN_LOCAL: lambda cfg, b, m, device: L.attention_cache_init(
         cfg, b, m, local=True, device=device),
+    MLSTM: lambda cfg, b, m, device: L.mlstm_cache_init(cfg, b,
+                                                        device=device),
+    SLSTM: lambda cfg, b, m, device: L.slstm_cache_init(cfg, b,
+                                                        device=device),
     RGLRU: lambda cfg, b, m, device: L.rglru_cache_init(cfg, b,
                                                         device=device),
 }
@@ -107,7 +110,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda"):
     """Stacked (per-group) decode caches, laid out as the reference's: on
     ``device`` (the card by default)."""
-    require_ported(cfg)
     groups = [{f"b{j}_{kind}": CACHE_INIT[kind](cfg, batch, max_len, device)
                for j, kind in enumerate(cfg.block_pattern)}
               for _ in range(cfg.num_groups)]
@@ -118,13 +120,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 # forward passes
 # ---------------------------------------------------------------------------
 
+RECURRENT_APPLY = {MLSTM: L.mlstm_apply, SLSTM: L.slstm_apply,
+                   RGLRU: L.rglru_apply}
+
+
 def _apply_block(kind: str, params, x, cfg, positions, cache):
     if kind in ATTENTION_KINDS:
         x, _, aux = L.transformer_block_apply(
             params, x, cfg, positions=positions, local=(kind == ATTN_LOCAL),
             cache=cache)
         return x, aux
-    x, _ = L.rglru_apply(params, x, cfg, positions=positions, cache=cache)
+    x, _ = RECURRENT_APPLY[kind](params, x, cfg, positions=positions,
+                                 cache=cache)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -150,10 +157,15 @@ def _unstack(tree, n: int) -> list:
 
 
 def _embed(params, cfg: ModelConfig, tokens, frontend_embeds=None):
-    if frontend_embeds is not None:
-        raise NotImplementedError(f"frontends are not ported yet: "
-                                  f"{L.BLOCKS_SLICE}")
+    """Token embeddings, with the projected ``frontend_embeds`` (B, F,
+    frontend_dim) as a prefix for the vlm and audio families (the
+    frontends themselves are stubs, as in the reference)."""
     x = params["embed"].to(L.dtype_of(cfg))[tokens.long()]
+    if cfg.family in ("vlm", "audio") and cfg.frontend and \
+            frontend_embeds is not None:
+        proj = frontend_embeds.to(x.dtype) @ \
+            params["frontend_proj"].to(x.dtype)
+        x = torch.cat([proj, x], dim=1)
     if cfg.attn_softcap:
         # gemma-style embedding scaling; the reference multiplies by a numpy
         # float32 scalar, which promotes the residual stream to float32
@@ -176,8 +188,8 @@ def _unembed(params, cfg: ModelConfig, x):
 def forward(params, cfg: ModelConfig, tokens, frontend_embeds=None,
             return_hidden: bool = False):
     """Training/prefill forward: tokens (B,S) -> (logits (B,S,V) float32,
-    aux), or (hidden (B,S,d), aux) with ``return_hidden``."""
-    require_ported(cfg)
+    aux), or (hidden (B,S,d), aux) with ``return_hidden``; S counts the
+    frontend prefix where there is one."""
     x = _embed(params, cfg, tokens, frontend_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
@@ -200,7 +212,6 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
 
     ``cache`` is the stacked per-group cache from ``init_cache``; it is
     updated in place. Returns (logits (B,1,V) float32, cache)."""
-    require_ported(cfg)
     x = _embed(params, cfg, tokens)
     for gparams, gcache in zip(_unstack(params["blocks"], cfg.num_groups),
                                _unstack(cache, cfg.num_groups)):

@@ -276,6 +276,99 @@ def test_narrow_train_steps_on_card_match_cpu(cuda):
                                    msg=path)
 
 
+NARROW_WIDTHS = dict(d_model=128, num_heads=2, num_kv_heads=2, head_dim=64,
+                     vocab_size=512, dtype="float32")
+
+
+def _card_vs_cpu_steps(cuda, cfg, tokens):
+    """Two train steps of ``cfg`` on the card and on the CPU from one set of
+    weights and batches (batch 2) -> (losses by device, final params by
+    device)."""
+    from repro_torch.core.serialization import tree_map_with_path
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_state = init_train_state(cfg, seed=0, device="cpu")
+    states = {"cuda": tree_map_with_path(lambda _p, t: t.to(cuda),
+                                         cpu_state),
+              "cpu": cpu_state}
+    data = SyntheticPipeline(DataConfig(cfg.vocab_size, tokens + 1, 2,
+                                        seed=0))
+    losses = {}
+    for dev, state in states.items():
+        step = make_train_step(cfg, AdamWConfig(warmup_steps=1))
+        for s in range(2):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in data.batch_at(s).items()}
+            state, m = step(state, batch)
+            losses.setdefault(dev, []).append(float(m["loss"]))
+    return losses, {dev: s["params"] for dev, s in states.items()}
+
+
+@pytest.mark.parametrize("tokens", [255, 512], ids=["quadratic", "chunked"])
+def test_narrow_xlstm_steps_on_card_match_cpu(cuda, tokens):
+    """One mLSTM and one sLSTM block in float32: 255 tokens take the
+    quadratic mLSTM form, 512 the chunkwise one (two chunks of 256).
+    Tolerances: loss rtol 1e-4; params rtol 1e-4, atol 5e-5."""
+    from repro_torch.configs import get_config
+    cfg = get_config("xlstm-350m").replace(num_layers=2, **NARROW_WIDTHS)
+    losses, params = _card_vs_cpu_steps(cuda, cfg, tokens)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    for (path, want), (_, have) in zip(_leaves(params["cpu"]),
+                                       _leaves(params["cuda"])):
+        torch.testing.assert_close(have.cpu(), want, rtol=1e-4, atol=5e-5,
+                                   msg=path)
+
+
+def test_narrow_moe_steps_on_card_match_cpu(cuda):
+    """Two attention + MoE blocks (8 experts, top-2) in float32. The
+    dispatch gather's backward adds atomically on the card, so the grads
+    are not bit-exact. Tolerances: loss rtol 1e-4; params rtol 1e-4,
+    atol 5e-5."""
+    from repro_torch.configs import get_config
+    cfg = get_config("olmoe-1b-7b").replace(
+        num_layers=2, num_experts=8, experts_per_token=2, moe_d_ff=128,
+        **NARROW_WIDTHS)
+    losses, params = _card_vs_cpu_steps(cuda, cfg, 63)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    for (path, want), (_, have) in zip(_leaves(params["cpu"]),
+                                       _leaves(params["cuda"])):
+        torch.testing.assert_close(have.cpu(), want, rtol=1e-4, atol=5e-5,
+                                   msg=path)
+
+
+def test_narrow_xlstm_decode_on_card_matches_cpu(cuda):
+    """16 decode steps of the narrow float32 xLSTM through the mLSTM and
+    sLSTM caches on the card against the CPU: logits and every cache leaf
+    within rtol 1e-4 / atol 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.serialization import tree_map_with_path
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import init_train_state, make_serve_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("xlstm-350m").replace(num_layers=2, **NARROW_WIDTHS)
+    params = init_train_state(cfg, seed=0, device="cpu")["params"]
+    on_card = tree_map_with_path(lambda _p, t: t.to(cuda), params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (2, 16)).astype(np.int32))
+    serve = make_serve_step(cfg)
+    caches = {"cpu": T.init_cache(cfg, 2, 16, device="cpu"),
+              "cuda": T.init_cache(cfg, 2, 16, device=cuda)}
+    for t in range(16):
+        pos = torch.full((2, 1), t, dtype=torch.int32)
+        want, caches["cpu"] = serve(params, caches["cpu"], tokens[:, t:t + 1],
+                                    pos)
+        got, caches["cuda"] = serve(on_card, caches["cuda"],
+                                    tokens[:, t:t + 1].to(cuda), pos.to(cuda))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    for (k, want), (_, got) in zip(_leaves(caches["cpu"]),
+                                   _leaves(caches["cuda"])):
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5,
+                                   msg=k)
+
+
 NARROW = dict(num_layers=3, block_pattern=("rglru", "rglru", "attn_local"),
               d_model=128, num_heads=2, num_kv_heads=1, head_dim=64,
               d_ff=256, lru_dim=200, vocab_size=512, sliding_window=16)

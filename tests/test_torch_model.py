@@ -216,14 +216,9 @@ def test_gemma_embedding_scale_promotes_to_float32():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
 
 
-def test_unported_features_raise():
-    """xLSTM and MoE blocks still raise; the RG-LRU cache branch is ported
-    and returns the stepped ``{"h"}`` state."""
+def test_rglru_cache_branch_steps_the_state():
+    """The RG-LRU cache branch returns the stepped ``{"h"}`` state."""
     _, pc = configs("float32")
-    with pytest.raises(NotImplementedError, match="A4"):
-        T.init_params(get_config("xlstm-350m").scaled_down(), device="meta")
-    with pytest.raises(NotImplementedError, match="A4"):
-        T.init_params(get_config("olmoe-1b-7b").scaled_down(), device="meta")
     params = _group0(T.init_params(pc, device="cpu")["blocks"])["b0_rglru"]
     x = torch.zeros((2, 1, 128))
     y, cache = L.rglru_apply(params, x, pc, cache=L.rglru_cache_init(pc, 2))
