@@ -121,13 +121,31 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                params, bf16, never checkpointed) served as in 4e at capacity
                factor 8.0 (no drops: the 0.05 gate holds) and at its own
                1.25 (the ratio reported only).
+     4h. the sharding layer: (a) phase 4's checkpoint of step 2 (after 4e)
+               resumed by a third Trainer with ``mesh=make_host_mesh(1, 1)``
+               on a 1-rank NCCL group, through ``restore(shardings=)`` with
+               the Partitioner's layouts onto a ``meta`` template: every
+               leaf a DTensor whose local block equals the saved state's
+               digest; steps 2 and 3 on DTensors (nothing written), each
+               loss within 1e-4 relative of run 2's, B5 launched through
+               ``local_map`` 27 times a step; step walls beside run 1's
+               and run 2's, restore wall, peak memory; then a step 4 on
+               the mesh under torch.profiler (kernel time and the host's
+               operator calls beside run 2's profile). (b) after 4f's run 2 has checked
+               its resume (its state is then the saved one, whose windows
+               are CRC'd on the host), 4 CPU processes on a gloo group
+               restore 4f's xlstm-350m checkpoint onto a 2x2 mesh, each
+               reading its windows only and reporting its bytes, wall and
+               a CRC of every local block, each equal to its window's. (c)
+               ``python -m repro_torch.launch.train --mesh 1x1 --steps 2
+               --ckpt-every 0`` on the card.
   5. chaos — the port's seeded chaos campaign with restores on the card, for
                the JAX package's gate seeds (0, 42): zero invariant
                violations, >= 200 faults fired, every required kind class.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
-the per-kernel JSON (launches summed over phases 3, 4, 4e and 4f, each
-counted from zero), and the one before that the nvidia-smi line. The run
+the per-kernel JSON (launches summed over phases 3, 4, 4e, 4f and 4h (a),
+each counted from zero), and the one before that the nvidia-smi line. The run
 needs one card, the repository's ``src/`` and ``examples/`` beside this
 file, and room for one ~18 GB checkpoint under ``build/``.
 """
@@ -137,6 +155,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -1481,11 +1500,16 @@ def device_profile(prof, wall_s: float, steps: int, top: int = 8,
         f"profiled host wall ({100 * busy_ms / (wall_s * 1e3):.1f}% busy); "
         + ", ".join(f"{g} {ms:.1f} ms ({100 * ms / busy_ms:.1f}%)"
                     for g, ms in groups.items()))
-    log(f"    {syncs} cudaStreamSynchronize calls")
+    # operators the host dispatched (each ``aten::`` call, nested included)
+    host_ops = sum(e.count for e in averages
+                   if e.device_type == DeviceType.CPU
+                   and e.key.startswith("aten::"))
+    log(f"    {syncs} cudaStreamSynchronize calls; {host_ops} aten operator "
+        f"calls on the host ({host_ops // steps} per step)")
     for key, ms, n in rows[:top]:
         log(f"    {ms:9.2f} ms  {n:6d} x  {key[:90]}")
     return dict(kernel_ms=busy_ms, wall_ms=wall_s * 1e3, steps=steps,
-                stream_syncs=syncs, groups_ms=groups,
+                stream_syncs=syncs, host_ops=host_ops, groups_ms=groups,
                 top=[dict(name=k, ms=ms, count=n) for k, ms, n in rows[:top]])
 
 
@@ -1497,13 +1521,16 @@ def train_config():
 
 
 def run_training(cfg, root: str, tally: WriteTally, *, phase: str,
-                 kernels: tuple, profile: bool) -> tuple[dict, dict]:
+                 kernels: tuple, profile: bool, on_resume=None
+                 ) -> tuple[dict, dict]:
     """Phase 4 (and 4f): ``cfg`` through the port's Trainer at batch 8 x 255
     tokens, with an async checkpoint followed by an in-place step, and a
     resume in a fresh Trainer. ``kernels`` must each be launched over the
-    two runs; ``profile`` runs run 2 under torch.profiler. Returns the
-    measurements and the digests of the saved params; the checkpoint stays
-    under ``root`` for the serving phase."""
+    two runs; ``profile`` runs run 2 under torch.profiler; ``on_resume``,
+    when given, is called with run 2's restored state once its digests
+    are checked (it is the saved state then). Returns the measurements
+    and the digests of every leaf of the saved train state; the
+    checkpoint stays under ``root`` for the serving phases."""
     import torch
     from repro_torch.core import trace
     from repro_torch.kernels import _lib, rglru as rk
@@ -1598,6 +1625,8 @@ def run_training(cfg, root: str, tally: WriteTally, *, phase: str,
             f" GB/s of state); {len(want)} leaf digests equal the saved "
             f"state's (step 3 had updated it in place)")
         restore = dict(t2.restore_attr, stall=stall("restore"))
+        if on_resume is not None:
+            on_resume(state)
         if profile:
             # run 2 saves nothing: profile its two steps for the device's
             # view
@@ -1634,8 +1663,14 @@ def run_training(cfg, root: str, tally: WriteTally, *, phase: str,
         if count <= 0:
             fail(f"kernel {name} was never launched on the phase {phase} "
                  f"training path")
-    return out, {k[len("params/"):]: v for k, v in saved[2].items()
-                 if k.startswith("params/")}
+    return out, saved[2]
+
+
+def param_digests(saved: dict) -> dict:
+    """The params' entries of a train state's digests, keyed without the
+    ``params/`` prefix."""
+    return {k[len("params/"):]: v for k, v in saved.items()
+            if k.startswith("params/")}
 
 
 def narrow_config():
@@ -2168,15 +2203,22 @@ def xlstm_path(root: str, cli_root: str, tally: WriteTally) -> dict:
     params swapped in (reads made cold, params only through ``window_fn``)
     and ``SERVE_SHAPE`` requests prefilled and decoded through the mLSTM
     and sLSTM caches in bf16 (decode vs prefill reported), then again on
-    the same weights in float32 under the ``SERVE_TOL`` yardstick. Last,
-    the training CLI once with its defaults (reduced xlstm-350m)."""
+    the same weights in float32 under the ``SERVE_TOL`` yardstick. Between
+    the resume and the swap-in, phase 4h (b): the checkpoint restored onto
+    a 2x2 mesh of CPU ranks. Last, the training CLI once with its defaults
+    (reduced xlstm-350m)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.serialization import tree_map_with_path
     cfg = get_config(XLSTM_ARCH)
     try:
-        out, saved = run_training(cfg, root, tally, phase="4f",
-                                  kernels=XLSTM_KERNELS, profile=False)
+        windows: dict = {}
+        out, saved = run_training(
+            cfg, root, tally, phase="4f", kernels=XLSTM_KERNELS,
+            profile=False, on_resume=lambda state: windows.update(
+                window_crcs(cfg, state, MESH_RESTORE)))
+        saved = param_digests(saved)
+        out["mesh_restore"] = cpu_mesh_restore(cfg, root, windows)
         out["swap_in_reads"] = cold_reads(root)
         params, out["swap_in"] = swap_in(root, "cuda", phase="4f")
         check_params(params, saved)
@@ -2295,6 +2337,303 @@ def train_cli(root: str, tally: WriteTally) -> dict:
                 losses=[m["loss"] for m in metrics])
 
 
+# ------------------------------------------------------------ phase 4h
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def local_leaves(state) -> dict:
+    """key -> this rank's block of every leaf of a DTensor state (a leaf
+    that is no DTensor fails the run)."""
+    from repro_torch.sharding.dtensor import is_dtensor
+    out = {}
+    for k, v in flat_leaves(state).items():
+        if not is_dtensor(v):
+            fail(f"restored leaf {k} is {type(v).__name__}, not a DTensor")
+        out[k] = v.to_local()
+    return out
+
+
+def rglru_launches_per_step(cfg) -> int:
+    """B5 launches of one train step: forward, the remat recompute (when
+    on) and the fused backward of every RG-LRU block."""
+    blocks = sum(k == "rglru" for k in cfg.block_pattern) * cfg.num_groups
+    return blocks * (3 if cfg.remat else 2)
+
+
+def mesh_step_profile(trainer, state) -> dict:
+    """One more train step (step 4) of the mesh Trainer's DTensor state
+    under torch.profiler, outside the Trainer so nothing is saved: the
+    card's kernel time and the host's operator calls beside run 2's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.steps import make_train_step
+    step_fn = make_train_step(trainer.cfg, trainer.opt_cfg,
+                              grad_shardings=trainer.grad_shardings,
+                              act_sharding=trainer.act_sharding)
+    batch = {k: trainer.batch_layouts[k].distribute(
+        torch.as_tensor(v, device=trainer.device))
+        for k, v in trainer.pipeline.batch_at(4).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+    wall = time.perf_counter() - t0
+    if not math.isfinite(loss):
+        fail(f"4h (a) profiled step 4 loss {loss}")
+    log(f"  4h (a) mesh step 4 (profiled): loss {loss:.4f}, {wall:.3f} s")
+    return device_profile(prof, wall, 1, label="4h (a) mesh step 4 profile")
+
+
+def mesh_resume(cfg, root: str, saved: dict, run1: dict, run2: dict
+                ) -> dict:
+    """Phase 4h (a): phase 4's checkpoint of step 2 resumed by a third
+    Trainer with ``mesh=make_host_mesh(1, 1)`` on a 1-rank NCCL group —
+    the restore through ``restore(shardings=)`` onto a ``meta`` template
+    with the Partitioner's layouts, every leaf a DTensor whose local block
+    must equal the saved state's digest — and trained steps 2 and 3 on
+    DTensors (it checkpoints every 5: nothing is written). Each loss must
+    lie within 1e-4 relative of run 2's at the same step, and B5 must run
+    under ``local_map`` as many times as in phase 4's steps. Its step
+    walls print beside run 1's (unprofiled) and run 2's (profiled); a
+    step 4, profiled, follows (``mesh_step_profile``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    B, S = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        trainer = Trainer(cfg, TrainerConfig(
+            steps=4, ckpt_every=5, ckpt_dir=root, async_ckpt=True, keep=1,
+            log_every=1, seed=0), device="cuda", mesh=make_host_mesh(1, 1))
+        try:
+            state, start = trainer.initial_state()
+            restore_s = trainer.restore_attr["restore_seconds"]
+            got = digests(local_leaves(state))
+            if start != 2 or got.keys() != saved.keys():
+                fail(f"4h (a) resumed step {start} with {len(got)} leaves; "
+                     f"phase 4 saved step 2 with {len(saved)}")
+            bad = [k for k in saved if not torch.equal(got[k], saved[k])]
+            if bad:
+                fail(f"4h (a): {len(bad)} restored local blocks differ from "
+                     f"the saved state, e.g. {bad[:3]}")
+            log(f"4h (a) {cfg.name} resumed onto a 1x1 cuda mesh through "
+                f"restore(shardings=) in {restore_s:.3f} s; {len(saved)} "
+                f"DTensor leaves, every local block's digest equal to the "
+                f"saved state's")
+            _lib.reset_launches()
+            out = trainer.run((state, start))
+            launches = _lib.LAUNCHES["rglru_scan"]
+            prof_out = mesh_step_profile(trainer, out["state"])
+        finally:
+            trainer.close()
+        del state
+    finally:
+        dist.destroy_process_group()
+    peak = torch.cuda.max_memory_allocated()
+    finite_losses(out, [2, 3])
+    steps = log_steps("4h (a) mesh run", out, B * S)
+    diffs = []
+    for m3, m2 in zip(steps, run2["steps"]):
+        rel = abs(m3["loss"] - m2["loss"]) / abs(m2["loss"])
+        diffs.append(rel)
+        if rel > 1e-4:
+            fail(f"4h (a) step {m3['step']} loss {m3['loss']} is {rel:.2e} "
+                 f"from run 2's {m2['loss']} (limit 1e-4 relative)")
+    want = rglru_launches_per_step(cfg) * len(steps)
+    if launches != want:
+        fail(f"4h (a): rglru_scan launched {launches} times under the mesh, "
+             f"{want} expected")
+    log(f"4h (a) losses within {max(diffs):.2e} relative of run 2's "
+        f"(limit 1e-4); step wall on the mesh "
+        + " / ".join(f"{m['seconds']:.3f}" for m in steps)
+        + " s vs run 2's (profiled) "
+        + " / ".join(f"{m['seconds']:.3f}" for m in run2["steps"])
+        + " s and run 1's (not) "
+        + " / ".join(f"{m['seconds']:.3f}" for m in run1["steps"])
+        + f" s; rglru_scan {launches} launches through local_map "
+        f"({launches // len(steps)} per step); peak device memory {peak} B")
+    r2p = run2.get("profile") or {}
+    if prof_out and r2p:
+        log(f"4h (a) profiled, per step, mesh vs run 2: kernels "
+            f"{prof_out['kernel_ms']:.1f} vs "
+            f"{r2p['kernel_ms'] / r2p['steps']:.1f} ms, host wall "
+            f"{prof_out['wall_ms']:.1f} vs "
+            f"{r2p['wall_ms'] / r2p['steps']:.1f} ms, aten calls "
+            f"{prof_out['host_ops']} vs {r2p['host_ops'] // r2p['steps']}")
+    torch.cuda.empty_cache()
+    return dict(restore_s=restore_s, steps=steps, loss_rel_diff=diffs,
+                launches={"rglru_scan": launches}, peak_device_bytes=peak,
+                profile=prof_out)
+
+
+MESH_RESTORE = (2, 2)       # 4h (b): (data, model) of the CPU ranks' mesh
+
+
+def crc_of(t) -> int:
+    """zlib CRC-32 of a host tensor's bytes."""
+    import zlib
+    import torch
+    return zlib.crc32(t.contiguous().reshape(-1).view(torch.uint8).numpy())
+
+
+def window_crcs(cfg, state: dict, mesh_shape: tuple) -> dict:
+    """4h (b), expected: ``{"rank/key": crc32}`` of every rank's window of
+    every leaf of ``state`` (the saved train state, on the card) under the
+    Partitioner's layouts on a (data, model) mesh of ``mesh_shape``; the
+    ranks' coordinates are row-major, as ``init_device_mesh``'s. Each
+    distinct window is copied to the host and CRC'd once."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.sharding.partition import Partitioner, window
+    from repro_torch.train.steps import init_train_state
+    t0 = time.perf_counter()
+    mesh = AbstractMesh(mesh_shape, ("data", "model"))
+    specs = {k: v.spec for k, v in flat_leaves(Partitioner(
+        cfg, mesh).state_shardings(init_train_state(cfg, device="meta")))
+        .items()}
+    out: dict = {}
+    for key, t in flat_leaves(state).items():
+        seen: dict = {}
+        for rank in range(mesh.size):
+            coord = divmod(rank, mesh_shape[1])
+            win = window(specs[key], mesh, tuple(t.shape), coord)
+            if win not in seen:
+                block = t
+                for dim, (lo, hi) in enumerate(win):
+                    block = block.narrow(dim, lo, hi - lo)
+                seen[win] = crc_of(block.cpu())
+            out[f"{rank}/{key}"] = seen[win]
+    log(f"4h (b) window CRCs of the saved state's {len(specs)} leaves on a "
+        f"{mesh_shape[0]}x{mesh_shape[1]} mesh in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def cpu_mesh_restore(cfg, root: str, want: dict) -> dict:
+    """Phase 4h (b): 4 CPU processes on a gloo group restore the
+    checkpoint under ``root`` (4f's full xlstm-350m, step 2) onto a 2x2
+    mesh through ``restore(shardings=)``, each reading its windows only;
+    each reports its bytes, wall and a CRC of every local block, checked
+    against ``want`` (``window_crcs`` of the saved state). Reads only."""
+    world = MESH_RESTORE[0] * MESH_RESTORE[1]
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="")
+    reports = [os.path.join(root + f".rank{r}.json") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-restore-rank",
+         str(r), "--world", str(world), "--port", str(port), "--ckpt", root,
+         "--report", reports[r]], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        fail(f"4h (b) ranks exited {[p.returncode for p in procs]}:\n"
+             + "\n".join(log[-2000:] for log in logs))
+    ranks = []
+    for r, path in enumerate(reports):
+        with open(path) as f:
+            rep = json.load(f)
+        os.remove(path)
+        bad = [k for k, crc in rep.pop("crcs").items()
+               if want.get(f"{r}/{k}") != crc]
+        if bad or len(want) != world * rep["keys"]:
+            fail(f"4h (b) rank {r}: {len(bad)} local blocks differ from "
+                 f"their windows of the saved state, e.g. {bad[:3]}")
+        ranks.append(rep)
+        log(f"4h (b) rank {r}: {rep['keys']} local blocks, {rep['bytes']} B "
+            f"of windows, restore wall {rep['wall_s']:.3f} s (read stall "
+            f"{rep['read_stall_s']:.3f} s, peak staged "
+            f"{rep['peak_staged_bytes']} B); every CRC equal to its "
+            f"window's")
+    total = sum(r["bytes"] for r in ranks)
+    log(f"4h (b) {cfg.name} step 2 onto a {MESH_RESTORE[0]}x"
+        f"{MESH_RESTORE[1]} gloo mesh of CPU ranks: {total} B of windows "
+        f"over {world} ranks in {wall:.1f} s (processes included)")
+    return dict(ranks=ranks, wall_s=wall)
+
+
+def mesh_restore_rank(args) -> None:
+    """One CPU rank of 4h (b) (this script with ``--mesh-restore-rank``)."""
+    sys.path.insert(0, SRC)
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.partition import Partitioner
+    from repro_torch.train.steps import init_train_state
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{args.port}", rank=args.mesh_restore_rank,
+                            world_size=args.world)
+    try:
+        mesh = make_host_mesh(*MESH_RESTORE, device="cpu")
+        cfg = get_config(XLSTM_ARCH)
+        meta = init_train_state(cfg, device="meta")
+        layouts = {"train/" + k: v for k, v in flat_leaves(
+            Partitioner(cfg, mesh).state_shardings(meta)).items()}
+        t0 = time.perf_counter()
+        with CheckpointManager(args.ckpt, device="cpu") as mgr:
+            got = mgr.restore({"train": meta}, step=2, shardings=layouts)
+            rm = mgr.last_restore_metrics
+        wall = time.perf_counter() - t0
+        blocks = local_leaves(got["train"])
+        rep = dict(crcs={k: crc_of(v) for k, v in blocks.items()},
+                   keys=len(blocks), wall_s=wall,
+                   read_stall_s=rm.read_stall_seconds,
+                   peak_staged_bytes=rm.peak_staged_bytes,
+                   bytes=sum(v.numel() * v.element_size()
+                             for v in blocks.values()))
+        with open(args.report, "w") as f:
+            json.dump(rep, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_cli() -> dict:
+    """Phase 4h (c): ``python -m repro_torch.launch.train --mesh 1x1
+    --steps 2 --ckpt-every 0`` (reduced xlstm-350m, the default) on the
+    card, run directly: its own 1-rank NCCL group. Its loss must be
+    finite."""
+    import math
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (SRC, os.environ.get("PYTHONPATH", "")) if p))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--mesh", "1x1",
+         "--steps", "2", "--ckpt-every", "0"], env=env, cwd=HERE,
+        capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"4h (c) CLI exited {run.returncode}:\n{run.stdout[-2000:]}\n"
+             f"{run.stderr[-4000:]}")
+    summary = [ln for ln in run.stdout.splitlines() if ln.startswith("arch=")]
+    loss = [ln for ln in run.stdout.splitlines() if ln.startswith("loss:")]
+    if not summary or "device=cuda mesh=1x1" not in summary[0] or not loss \
+            or not all(math.isfinite(float(x)) for x in
+                       loss[0].split()[1::2]):
+        fail(f"4h (c) CLI printed {summary} {loss}")
+    log(f"4h (c) CLI on a 1x1 cuda mesh: {summary[0]}; {loss[0]} in "
+        f"{seconds:.1f} s (process included)")
+    return dict(seconds=seconds, summary=summary[0], loss=loss[0])
+
+
 def moe_serve() -> dict:
     """Phase 4g: full-width olmoe-1b-7b (16 layers, 64 experts, top-8,
     6.92 B params), initialised on the card, cast to bf16 and never
@@ -2384,7 +2723,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this file")
+    # one CPU rank of phase 4h (b), started by the run itself
+    for flag in ("--mesh-restore-rank", "--world", "--port"):
+        ap.add_argument(flag, type=int, default=-1, help=argparse.SUPPRESS)
+    for flag in ("--ckpt", "--report"):
+        ap.add_argument(flag, default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.mesh_restore_rank >= 0:
+        mesh_restore_rank(args)
+        return 0
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail("src/repro_torch not found beside chip_smoke.py")
     sys.path.insert(0, SRC)
@@ -2475,18 +2822,23 @@ def main(argv=None) -> int:
     train_root = os.path.join(HERE, "build", "smoke_train")
     t0 = time.perf_counter()
     try:
-        training, saved_params = run_training(
+        training, saved = run_training(
             train_config(), train_root, tally, phase="4",
             kernels=TRAINING_KERNELS, profile=True)
         log(f"training path: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         serving = serve_path(train_root, os.path.join(HERE, "build",
                                                       "smoke_zoo"),
-                             tally, saved_params)
+                             tally, param_digests(saved))
         log(f"4e: {time.perf_counter() - t0:.1f} s")
+        # phase 4h (a): the same checkpoint resumed onto a 1x1 CUDA mesh
+        t0 = time.perf_counter()
+        mesh = mesh_resume(train_config(), train_root, saved,
+                           training["run1"], training["run2"])
+        log(f"4h (a): {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(train_root, ignore_errors=True)
-    del saved_params
+    del saved
     # phase 4f: the slice's path, full xlstm-350m trained, resumed, served
     t0 = time.perf_counter()
     xlstm = xlstm_path(os.path.join(HERE, "build", "smoke_xlstm"),
@@ -2496,6 +2848,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     moe = moe_serve()
     log(f"4g: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh["cli"] = mesh_cli()
+    log(f"4h (c): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     training["cpu_vs_card"] = [cpu_vs_card(cfg, tokens, label) for
                                label, cfg, tokens in card_vs_cpu_cases()]
@@ -2517,7 +2872,8 @@ def main(argv=None) -> int:
     launches = {name: main_path["launches"].get(name, 0)
                 + training["launches"].get(name, 0)
                 + serving["launches"].get(name, 0)
-                + xlstm["launches"].get(name, 0) for name in KERNELS}
+                + xlstm["launches"].get(name, 0)
+                + mesh["launches"].get(name, 0) for name in KERNELS}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
@@ -2533,7 +2889,8 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, kernels=results, main_path=main_path,
                            training=training, serving=serving, xlstm=xlstm,
-                           moe=moe, chaos=chaos_run), f, indent=1)
+                           moe=moe, mesh=mesh, chaos=chaos_run), f,
+                      indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -784,14 +784,22 @@ class CheckpointManager:
 
     # -------------------------------------------------------------- restore
     def restore(self, state_template=None, *, step: int | None = None,
-                window_fn=None):
+                shardings=None, window_fn=None):
         """Restore a checkpoint.
 
         ``state_template``: a state of like-shaped tensors whose devices
         define where each restored tensor goes (a leaf that is no tensor, or
-        a ``meta`` tensor, goes to the manager's ``device``). When None,
-        every tensor goes to the manager's ``device``, in the saved tree
-        structure (using the lean object).
+        a ``meta`` tensor, goes to the manager's ``device``; a DTensor
+        leaf gets this rank's window, as a DTensor of its layout). When
+        None, every tensor goes to the manager's ``device``, in the saved
+        tree structure (using the lean object).
+
+        ``shardings``: {``path_str`` key: layout} — a layout is anything
+        with ``mesh`` and ``placements`` (``sharding.partition.Layout``),
+        or a ``(DeviceMesh, placements)`` pair. A key's layout takes precedence
+        over its template leaf's: this rank's window of it is read and
+        comes back as a DTensor of that layout (so a ``meta`` template with
+        ``shardings`` restores straight into DTensors).
 
         ``window_fn(record) -> [(window, device_or_None), ...]`` overrides
         the per-tensor wanted windows.
@@ -801,19 +809,22 @@ class CheckpointManager:
         explicitly requested step propagates the error.
         """
         if step is not None:
-            return self._restore_step(step, state_template, window_fn)
+            return self._restore_step(step, state_template, shardings,
+                                      window_fn)
         steps = self.all_steps()
         if not steps:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         last_err: ManifestError | None = None
         for s in reversed(steps):
             try:
-                return self._restore_step(s, state_template, window_fn)
+                return self._restore_step(s, state_template, shardings,
+                                          window_fn)
             except ManifestError as e:
                 last_err = e   # corrupt manifest: fall back to older step
         raise last_err
 
-    def _restore_step(self, step: int, state_template, window_fn):
+    def _restore_step(self, step: int, state_template, shardings,
+                      window_fn):
         t_start = trace.clock()
         ckpt = os.path.join(self.directory, step_dir_name(step))
         prefetch = None
@@ -826,14 +837,15 @@ class CheckpointManager:
         try:
             with trace.span("restore", attrs={"step": step}):
                 return self._restore_from(ckpt, step, state_template,
-                                          prefetch, t_start, window_fn)
+                                          prefetch, t_start, shardings,
+                                          window_fn)
         except BaseException:
             if prefetch is not None:
                 prefetch.discard(ckpt)
             raise
 
     def _restore_from(self, ckpt, step, state_template, prefetch, t_start,
-                      window_fn=None):
+                      shardings=None, window_fn=None):
         manifest = Manifest.load(ckpt)
         faults.check_quarantined(ckpt, manifest)
         metrics = RestoreMetrics(
@@ -853,14 +865,20 @@ class CheckpointManager:
         template_by_key: dict[str, object] = {}
         if state_template is not None:
             template_by_key = _template_tensors(state_template)
+        # key -> (mesh, placements) of every leaf restored as a DTensor
+        layouts = {k: (t.device_mesh, t.placements)
+                   for k, t in template_by_key.items() if is_dtensor(t)}
+        layouts.update({k: _layout_of(v)
+                        for k, v in (shardings or {}).items()})
         for stub in iter_stubs(lean_tree):
             rec = manifest.tensors[stub.key]
             if window_fn is not None:
                 shard_list = [(w, torch.device(d) if d is not None
                                else self.device) for w, d in window_fn(rec)]
             else:
-                tmpl = template_by_key.get(stub.key)
-                shard_list = self._target_windows(rec, tmpl)
+                shard_list = self._target_windows(
+                    rec, template_by_key.get(stub.key),
+                    layouts.get(stub.key))
             wanted[stub.key] = shard_list
 
         qset = set(manifest.extra.get("quantized", ()))
@@ -879,25 +897,33 @@ class CheckpointManager:
             prefetch.finish(ckpt, os.path.join(self.directory,
                                                step_dir_name(step)))
         if window_fn is None:
-            for key, tmpl in template_by_key.items():
-                if is_dtensor(tmpl) and key in out_tensors:
+            for key, layout in layouts.items():
+                if key in out_tensors:
                     out_tensors[key] = _as_dtensor(
-                        out_tensors[key], tmpl, manifest.tensors[key])
+                        out_tensors[key], *layout,
+                        manifest.tensors[key].global_shape)
         metrics.end_to_end_seconds = trace.clock() - t_start
         self.last_restore_metrics = metrics
         state = reinsert_tensors(lean_tree, out_tensors)
-        if template_by_key:
+        if template_by_key or layouts:
             state = tree_map_with_path(
                 lambda p, x: self._lean_as_template(
-                    x, template_by_key.get(path_str(p))), state)
+                    x, template_by_key.get(path_str(p)),
+                    layouts.get(path_str(p))), state)
         return state
 
-    def _lean_as_template(self, leaf, tmpl):
+    def _lean_as_template(self, leaf, tmpl, layout=None):
         """A 0-d array that rode in the lean object (the multi-writer
         save's replicated scalars, as in the reference) comes back as a
-        tensor where the template holds one, on the template's device."""
-        if not isinstance(leaf, (np.ndarray, np.generic)) or \
-                not isinstance(tmpl, torch.Tensor) or is_dtensor(tmpl):
+        tensor where the template holds one, on the template's device — or
+        as a DTensor where ``layout`` (mesh, placements) is given."""
+        if not isinstance(leaf, (np.ndarray, np.generic)):
+            return leaf
+        if layout is not None:
+            arr = np.asarray(leaf)
+            return _as_dtensor(np_to_torch(arr, mesh_device(layout[0])),
+                               *layout, arr.shape)
+        if not isinstance(tmpl, torch.Tensor) or is_dtensor(tmpl):
             return leaf
         device = tmpl.device if tmpl.device.type != "meta" else self.device
         return np_to_torch(np.asarray(leaf), device)
@@ -1052,18 +1078,18 @@ class CheckpointManager:
         dist.all_gather_object(gathered, int(local_total))
         return [int(x) for x in gathered]
 
-    def _target_windows(self, rec, tmpl):
+    def _target_windows(self, rec, tmpl, layout=None):
         """(window, device) pairs this process must materialize: for a
-        DTensor template, this rank's local window by the template's mesh
-        and placements, on the mesh's device type; otherwise the whole
-        tensor, on the template tensor's device (else the manager's)."""
-        if is_dtensor(tmpl):
-            layout = dtensor_window(tmpl.device_mesh, tmpl.placements,
-                                    tuple(rec.global_shape))
-            if layout is None:
+        ``layout`` (mesh, placements: the ``shardings`` entry or the DTensor
+        template's), this rank's local window, on the mesh's device type;
+        otherwise the whole tensor, on the template tensor's device (else
+        the manager's)."""
+        if layout is not None:
+            win = dtensor_window(*layout, tuple(rec.global_shape))
+            if win is None:
                 raise ValueError(f"{rec.key}: this rank is not in the "
-                                 f"template's device mesh")
-            return [(layout[0], _mesh_device(tmpl.device_mesh))]
+                                 f"layout's device mesh")
+            return [(win[0], mesh_device(layout[0]))]
         device = self.device
         if isinstance(tmpl, torch.Tensor) and tmpl.device.type != "meta":
             device = tmpl.device
@@ -1124,7 +1150,7 @@ def _deduped(rec):
     return out
 
 
-def _mesh_device(mesh) -> torch.device:
+def mesh_device(mesh) -> torch.device:
     """This process's device of a ``DeviceMesh``."""
     if mesh.device_type == "cpu":
         return torch.device("cpu")
@@ -1132,13 +1158,23 @@ def _mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type, accel.current_device())
 
 
-def _as_dtensor(local, tmpl, rec):
-    """This rank's assembled window as a DTensor laid out like ``tmpl``."""
+def _layout_of(layout) -> tuple:
+    """(DeviceMesh, placements) of a ``shardings`` entry."""
+    if isinstance(layout, tuple):
+        mesh, placements = layout
+    else:
+        mesh, placements = layout.mesh, layout.placements
+    return mesh, tuple(placements)
+
+
+def _as_dtensor(local, mesh, placements, shape):
+    """This rank's assembled window of a tensor of ``shape`` as a DTensor
+    of layout (``mesh``, ``placements``)."""
     from torch.distributed.tensor import DTensor
-    shape = tuple(rec.global_shape)
+    shape = tuple(shape)
     stride = tuple(int(np.prod(shape[i + 1:], dtype=np.int64))
                    for i in range(len(shape)))
-    return DTensor.from_local(local, tmpl.device_mesh, tmpl.placements,
+    return DTensor.from_local(local, mesh, placements,
                               run_check=False, shape=torch.Size(shape),
                               stride=stride)
 

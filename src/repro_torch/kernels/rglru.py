@@ -7,7 +7,8 @@ Counterpart of ``repro/kernels/rglru.py`` (and of the associative scan in
 on CUDA tensors each launches the hand-written kernel of ``csrc/rglru.cu``
 once; on CPU tensors they run the plain PyTorch versions of ``ref.py`` — the
 same arithmetic, bit for bit. ``rglru_scan`` is the differentiable op the
-model calls: its backward is one ``linear_scan_grad``.
+model calls: its backward is one ``linear_scan_grad``; on DTensors it scans
+each rank's local block under ``local_map``.
 
 Shapes are (B, S, R) float32 of any size: the kernel needs no padding.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.dtensor import keep_dims, on_local
 from . import _lib, ref
 
 _MODES = {"forward": 0, "reverse": 1, "grad": 2}
@@ -122,5 +124,14 @@ class _RGLRUScan(torch.autograd.Function):
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Differentiable (B, S, R) recurrence h_t = a_t * h_{t-1} + b_t."""
-    return _RGLRUScan.apply(a, b)
+    """Differentiable (B, S, R) recurrence h_t = a_t * h_{t-1} + b_t.
+
+    DTensors (under a mesh) are scanned block by block under ``local_map``:
+    the batch dim may stay split (over data) and so may the channel dim
+    (over model: ``a_param`` and the gate weights split on ``lru_dim``);
+    the sequence dim, along which the recurrence runs, is made whole, as is
+    any pending sum. Every (batch, channel) column is then whole on one
+    rank, and the kernel (forward and fused backward) runs unchanged on
+    each rank's local (B, S, R) block."""
+    layout = keep_dims(a, (0, 2))
+    return on_local(_RGLRUScan.apply, (a, b), (layout, layout), layout)

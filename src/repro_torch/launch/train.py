@@ -7,8 +7,16 @@ overheads. Runs on the card by default (``--device cpu`` for a reduced run
 on the CPU); the default architecture is xlstm-350m, as in the reference;
 ``--full`` trains the full-size config (xlstm-350m and recurrentgemma-2b
 each fit one 80 GB H100). ``--remote-dir`` adds a level-1 directory
-(two-level checkpointing, resumable after the loss of ``--ckpt-dir``);
-``--mesh`` of the reference waits for the sharding slice.
+(two-level checkpointing, resumable after the loss of ``--ckpt-dir``).
+
+``--mesh DxM`` trains on a (data x model) DeviceMesh, one process per rank,
+the state and batch as DTensors (``Trainer(mesh=)``): launch it with
+``torchrun --nproc-per-node D*M -m repro_torch.launch.train --mesh DxM``,
+or run it directly for ``1x1``. The process group is NCCL on the card and
+gloo with ``--device cpu``; a mesh whose D*M is not the world size fails,
+and so does ``--remote-dir`` on a mesh of more than one rank (its ranks
+save into one group checkpoint).
+Only rank 0 prints the report and writes ``--json-out``.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import socket
 import tempfile
 
 from ..configs import ARCH_IDS, get_config
@@ -48,9 +57,38 @@ def build_trainer(args) -> Trainer:
                           frontend_dim=cfg.frontend_dim)
     eng_cfg = EngineConfig(strategy=args.strategy, direct=not args.buffered,
                            queue_depth=args.queue_depth)
+    mesh = None
+    if args.mesh:
+        from .mesh import make_host_mesh
+        d, m = parse_mesh(args.mesh)
+        mesh = make_host_mesh(d, m, device=args.device)
     return Trainer(cfg, tcfg, data_cfg=data_cfg,
                    opt_cfg=AdamWConfig(lr=args.lr),
-                   engine_config=eng_cfg, device=args.device)
+                   engine_config=eng_cfg, device=args.device, mesh=mesh)
+
+
+def parse_mesh(text: str) -> tuple[int, int]:
+    try:
+        d, m = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {text!r}: expected DxM, e.g. 2x2") from None
+    return d, m
+
+
+def init_process_group(device: str) -> None:
+    """The process group of a ``--mesh`` run: torchrun's (``env://``) when
+    it launched this process, else one rank of its own on a free local
+    port."""
+    import torch.distributed as dist
+    backend = "nccl" if device.startswith("cuda") else "gloo"
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+        return
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -69,6 +107,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--width-div", type=int, default=8)
     ap.add_argument("--vocab", type=int, default=2048)
+    ap.add_argument("--mesh", default="",
+                    help="DxM (data x model) DeviceMesh, one process per "
+                    "rank, e.g. 2x2 under torchrun; 1x1 runs directly")
     # checkpointing
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--ckpt-dir", default=os.path.join(
@@ -89,14 +130,27 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
+    if not args.mesh:
+        return run(args)
+    import torch.distributed as dist
+    init_process_group(args.device)
+    try:
+        run(args, rank=dist.get_rank())
+    finally:
+        dist.destroy_process_group()
 
+
+def run(args, rank: int = 0) -> None:
     trainer = build_trainer(args)
     try:
         out = trainer.run()
     finally:
         trainer.close()
+    if rank:
+        return
     losses = [m["loss"] for m in out["metrics"]]
-    print(f"\narch={args.arch} device={args.device} steps={args.steps} "
+    print(f"\narch={args.arch} device={args.device} "
+          f"mesh={args.mesh or 'none'} steps={args.steps} "
           f"wall={out['wall_seconds']:.1f}s "
           f"ckpt_blocking={out['ckpt_blocking_seconds']:.2f}s")
     if losses:

@@ -15,6 +15,18 @@ follow the reference's.
 Decode caches are updated IN PLACE: a block given a cache writes the new
 key/value (or recurrent state) into it, advances its ``pos``, and returns
 the same dict — the reference returns new arrays instead.
+
+Under a mesh the params and activations are DTensors and the projections,
+norms and MLPs follow DTensor's sharding propagation (PyTorch 2.11 and
+2.13 alike). The rest runs on each rank's local blocks under ``local_map``
+(``sharding.dtensor.on_local``), where a release lacks a strategy or the
+work is independent per batch row, head or channel: the attention and
+mLSTM cores per (batch row, head) (``_heads_local``: GQA's reshape and the
+einsums' flattening of a split head), the sLSTM loop over time (per batch
+row, the recurrent weights whole), the MoE routing and dispatch (every
+token and expert whole: the capacity counts over the whole batch),
+``log_sigmoid`` (``pointwise``) and the RG-LRU scan (``kernels.rglru``).
+Rope's angles join as a replicated DTensor (``like``).
 """
 
 from __future__ import annotations
@@ -25,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rglru import rglru_scan
+from ..sharding.dtensor import (is_dtensor, keep_dims, like, on_local,
+                                pointwise, replicate, summed_over)
 from .config import ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -89,8 +103,8 @@ def rope(x, positions, theta: float):
     exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
     freqs = (1.0 / (theta ** exps.double())).float()
     angles = positions[..., :, None].float() * freqs        # (..., S, half)
-    cos = torch.cos(angles.double()).float()[..., None, :]
-    sin = torch.sin(angles.double()).float()[..., None, :]
+    cos = like(torch.cos(angles.double()).float()[..., None, :], x)
+    sin = like(torch.sin(angles.double()).float()[..., None, :], x)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -175,6 +189,22 @@ def chunked_attention(q, k, v, cfg: ModelConfig, window: int,
     return torch.cat(outs, dim=1)[:, :S]
 
 
+def _heads_local(fn, q, *rest):
+    """``fn(q, *rest)`` for work independent per (batch row, head): q
+    (B,S,H,D) and each of ``rest`` (B,S',H',...) with its heads on dim 2.
+    Under a mesh it runs on local blocks (``local_map``), every input split
+    as q over batch and heads — heads split only where all inputs split
+    them alike, else whole — the rest made whole: the GQA reshape and the
+    einsums' flattening of a split head dim have no DTensor strategy in
+    every release. The output takes q's layout."""
+    if not is_dtensor(q):
+        return fn(q, *rest)
+    lay = keep_dims(q, (0, 2))
+    if any(keep_dims(t, (0, 2)) != lay for t in rest):
+        lay = keep_dims(q, (0,))
+    return on_local(fn, (q, *rest), (lay,) * (1 + len(rest)), lay)
+
+
 def attention_apply(params, x, cfg: ModelConfig, *, positions, local: bool,
                     cache=None):
     """Pre-norm attention block with residual -> (x, cache). cache:
@@ -198,7 +228,9 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, local: bool,
     k = rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if local else 0
     if cache is None:
-        out = chunked_attention(q, k, v, cfg, window)
+        out = _heads_local(lambda q, k, v: chunked_attention(q, k, v, cfg,
+                                                             window),
+                           q, k, v)
     else:
         # decode: write into the ring (window > 0) or linear buffer, attend
         # over it. Slot positions are analytic: ring slot s holds position
@@ -298,6 +330,16 @@ def moe_apply(params, x, cfg: ModelConfig,
     Switch load-balance loss is E · Σ_e f_e · p_e."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
+    names = ("router", "wg", "wu", "wd")
+    if is_dtensor(x):
+        # under a mesh: on every rank, over all tokens (the capacity and the
+        # slots count over the whole batch) with every expert
+        ts = (x, *(params[k] for k in names))
+        rep = replicate(x)
+        return on_local(
+            lambda x, *ws: moe_apply(dict(zip(names, ws)), x, cfg,
+                                     capacity_factor),
+            ts, [rep] * len(ts), (rep, rep))
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
@@ -452,8 +494,10 @@ def _mlstm_qkv(params, h, cfg: ModelConfig):
         math.sqrt(hd)
     v = (h @ params["wv"].to(h.dtype)).reshape(B, S, H, hd)
     logi = (h @ params["w_igate"].to(h.dtype)).float() + params["b_igate"]
-    logf = F.logsigmoid((h @ params["w_fgate"].to(h.dtype)).float()
-                        + params["b_fgate"])
+    # log_sigmoid's backward has no DTensor strategy
+    logf = pointwise(F.logsigmoid,
+                     (h @ params["w_fgate"].to(h.dtype)).float()
+                     + params["b_fgate"])
     return q, k, v, logi, logf
 
 
@@ -539,9 +583,10 @@ def mlstm_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
     B, S, H, D = q.shape
     if cache is None:
         if S <= chunk:
-            out = mlstm_sequence(q, k, v, logi, logf)
+            out = _heads_local(mlstm_sequence, q, k, v, logi, logf)
         else:
-            out = _mlstm_chunked(q, k, v, logi, logf, chunk)
+            out = _heads_local(lambda *ts: _mlstm_chunked(*ts, chunk),
+                               q, k, v, logi, logf)
     else:
         Cst, Nst, Mst = cache["C"], cache["N"], cache["M"]
         lf, li = logf[:, 0], logi[:, 0]                       # (B,H)
@@ -617,6 +662,23 @@ def _slstm_step(r, carry, pre_x, one):
     return (c, n, m_new, h), h
 
 
+def _slstm_scan(pre_x, r):
+    """The sLSTM recurrence over a whole sequence from a zero state:
+    pre_x (B,S,4d) float32 -> h (B,S,d)."""
+    B, _, d4 = pre_x.shape
+    zero = torch.zeros((B, d4 // 4), dtype=torch.float32,
+                       device=pre_x.device)
+    one = torch.ones((), dtype=torch.float32, device=pre_x.device)
+    carry = (zero, zero, zero, zero)
+    hs = []
+    # unbind, not pre_x[:, t]: the backward of S slices would add S
+    # zero-filled (B,S,4d) grads; unbind's stacks them once
+    for px in pre_x.unbind(1):
+        carry, h = _slstm_step(r, carry, px, one)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
 def slstm_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
                 cache=None):
     """The recurrence runs in float32, with the gate weights and biases
@@ -627,23 +689,17 @@ def slstm_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
     math); each step adds ``h_{t-1} @ r_g``. Decode (cache dict(c, n, m,
     h), S == 1): one step, written back in place."""
     h0 = rmsnorm(params["norm1"], x, cfg.norm_eps).float()
-    B, _, d = h0.shape
     w = torch.cat([params[f"w_{g}"].float() for g in SLSTM_GATES], dim=1)
     r = torch.cat([params[f"r_{g}"].float() for g in SLSTM_GATES], dim=1)
     b = torch.cat([params[f"b_{g}"].float() for g in SLSTM_GATES])
     pre_x = h0 @ w + b                                        # (B,S,4d)
-    one = torch.ones((), dtype=torch.float32, device=x.device)
     if cache is None:
-        zero = torch.zeros((B, d), dtype=torch.float32, device=x.device)
-        carry = (zero, zero, zero, zero)
-        hs = []
-        # unbind, not pre_x[:, t]: the backward of S slices would add S
-        # zero-filled (B,S,4d) grads; unbind's stacks them once
-        for px in pre_x.unbind(1):
-            carry, h = _slstm_step(r, carry, px, one)
-            hs.append(h)
-        out = torch.stack(hs, dim=1)
+        # under a mesh, on each rank's batch rows with the whole r
+        rows = keep_dims(pre_x, (0,))
+        out = on_local(_slstm_scan, (pre_x, r), (rows, replicate(r)), rows,
+                       rows and (rows, summed_over(rows)))
     else:
+        one = torch.ones((), dtype=torch.float32, device=x.device)
         carry = tuple(cache[k] for k in ("c", "n", "m", "h"))
         new, h = _slstm_step(r, carry, pre_x[:, 0], one)
         for old, val in zip(carry, new):

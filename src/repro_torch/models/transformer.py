@@ -25,6 +25,8 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..sharding.dtensor import (constrain, keep_dims, on_local, replicate,
+                                summed_over)
 from . import layers as L
 from .config import (ATTN, ATTN_LOCAL, ATTENTION_KINDS, MLSTM, RGLRU, SLSTM,
                      ModelConfig)
@@ -135,14 +137,17 @@ def _apply_block(kind: str, params, x, cfg, positions, cache):
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _group(x, positions, gparams, cfg: ModelConfig, gcache=None):
+def _group(x, positions, gparams, cfg: ModelConfig, gcache=None,
+           act_sharding=None):
     """One group of blocks -> (x, aux); ``gcache`` (decode) is updated in
-    place."""
+    place. Under a mesh the residual stream is redistributed to
+    ``act_sharding`` after every block."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, kind in enumerate(cfg.block_pattern):
         name = f"b{j}_{kind}"
         x, a = _apply_block(kind, gparams[name], x, cfg, positions,
                             None if gcache is None else gcache[name])
+        x = constrain(x, act_sharding)
         aux = aux + a
     return x, aux
 
@@ -156,11 +161,22 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
+def _lookup(table, tokens):
+    """``table[tokens]``. Under a mesh each rank looks up its rows of the
+    batch in a whole copy of the table (the gather's backward, an
+    index_put, has no DTensor strategy in every release), so the table's
+    grad is a pending sum over the batch's splits."""
+    rows = keep_dims(tokens, (0,))
+    return on_local(lambda t, ids: t[ids.long()], (table, tokens),
+                    (replicate(table), rows), rows,
+                    rows and (summed_over(rows), rows))
+
+
 def _embed(params, cfg: ModelConfig, tokens, frontend_embeds=None):
     """Token embeddings, with the projected ``frontend_embeds`` (B, F,
     frontend_dim) as a prefix for the vlm and audio families (the
     frontends themselves are stubs, as in the reference)."""
-    x = params["embed"].to(L.dtype_of(cfg))[tokens.long()]
+    x = _lookup(params["embed"].to(L.dtype_of(cfg)), tokens)
     if cfg.family in ("vlm", "audio") and cfg.frontend and \
             frontend_embeds is not None:
         proj = frontend_embeds.to(x.dtype) @ \
@@ -186,21 +202,24 @@ def _unembed(params, cfg: ModelConfig, x):
 
 
 def forward(params, cfg: ModelConfig, tokens, frontend_embeds=None,
-            return_hidden: bool = False):
+            return_hidden: bool = False, act_sharding=None):
     """Training/prefill forward: tokens (B,S) -> (logits (B,S,V) float32,
     aux), or (hidden (B,S,d), aux) with ``return_hidden``; S counts the
-    frontend prefix where there is one."""
-    x = _embed(params, cfg, tokens, frontend_embeds)
+    frontend prefix where there is one. Under a mesh (DTensor params and
+    tokens) ``act_sharding`` pins the residual stream's layout at the embed
+    and after every block, as the reference's sharding constraints do."""
+    x = constrain(_embed(params, cfg, tokens, frontend_embeds), act_sharding)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gparams in _unstack(params["blocks"], cfg.num_groups):
         if cfg.remat and torch.is_grad_enabled():
-            x, a = checkpoint(_group, x, positions, gparams, cfg,
-                              use_reentrant=False)
+            x, a = checkpoint(_group, x, positions, gparams, cfg, None,
+                              act_sharding, use_reentrant=False)
         else:
-            x, a = _group(x, positions, gparams, cfg)
+            x, a = _group(x, positions, gparams, cfg,
+                          act_sharding=act_sharding)
         aux = aux + a
     if return_hidden:
         return x, aux

@@ -1,0 +1,103 @@
+"""DTensor helpers of the model code under a mesh.
+
+Off a mesh every helper hands plain tensors through untouched, so the
+model code calls them unconditionally. ``constrain`` is the counterpart of
+``jax.lax.with_sharding_constraint``; ``like`` lets a plain tensor made
+inside a block (rope's angles, a mask, a zero carry — the same on every
+rank) join DTensor arithmetic as a replicated DTensor; ``on_local`` runs a
+function on the local blocks of its DTensor arguments under ``local_map``,
+for work that DTensor's sharding propagation cannot split by itself (a
+loop over time, a gather/scatter routing, a CUDA kernel).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def is_dtensor(t) -> bool:
+    if type(t) is torch.Tensor or not isinstance(t, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def constrain(x, layout):
+    """``x`` redistributed to ``layout`` (anything with ``mesh`` and
+    ``placements``); ``x`` itself when either is not sharded."""
+    if layout is None or not is_dtensor(x):
+        return x
+    return x.redistribute(layout.mesh, layout.placements)
+
+
+def like(t, ref):
+    """``t``, a plain tensor equal on every rank, as a replicated DTensor on
+    ``ref``'s mesh when ``ref`` is a DTensor (else ``t`` itself)."""
+    if not is_dtensor(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, ref.device_mesh, replicate(ref),
+                              run_check=False)
+
+
+def replicate(t) -> tuple | None:
+    """Placements that replicate over the whole mesh of DTensor ``t``
+    (None for a plain tensor)."""
+    if not is_dtensor(t):
+        return None
+    from torch.distributed.tensor import Replicate
+    return (Replicate(),) * t.device_mesh.ndim
+
+
+def keep_dims(t, dims: tuple[int, ...]) -> tuple | None:
+    """``t``'s placements with every split of a dim outside ``dims``, and
+    every pending sum (``Partial``), replaced by a whole copy (None for a
+    plain tensor)."""
+    if not is_dtensor(t):
+        return None
+    from torch.distributed.tensor import Replicate
+    ndim = t.ndim
+    return tuple(p if p.is_shard() and p.dim % ndim in dims else Replicate()
+                 for p in t.placements)
+
+
+def summed_over(placements: tuple) -> tuple:
+    """The grad layout of a whole copy used against blocks split as
+    ``placements``: a pending sum over each mesh dim that splits them."""
+    from torch.distributed.tensor import Partial, Replicate
+    return tuple(Partial() if p.is_shard() else Replicate()
+                 for p in placements)
+
+
+def on_local(fn, tensors, in_placements, out_placements,
+             grad_placements=None):
+    """``fn(*tensors)``; when ``tensors`` are DTensors, each is first
+    redistributed to its ``in_placements`` entry and ``fn`` runs on the
+    local blocks under ``local_map``, its output(s) laid out by
+    ``out_placements`` (one placements tuple, or one per output).
+    ``grad_placements`` (one per tensor, default ``in_placements``) lays
+    out each input's grad: a whole copy (``Replicate``) that meets split
+    blocks gets only their share of its grad on each rank, which is
+    ``summed_over`` the splits."""
+    if not is_dtensor(tensors[0]):
+        return fn(*tensors)
+    from torch.distributed.tensor import Placement
+    from torch.distributed.tensor.experimental import local_map
+    if isinstance(out_placements[0], Placement):      # one output
+        out_placements = (out_placements,)
+    mesh = tensors[0].device_mesh
+    tensors = [t.redistribute(mesh, p)
+               for t, p in zip(tensors, in_placements)]
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=None if grad_placements is None
+                     else tuple(grad_placements),
+                     device_mesh=mesh)(*tensors)
+
+
+def pointwise(fn, t):
+    """Elementwise ``fn(t)`` for an op whose backward has no DTensor
+    strategy (``log_sigmoid``): a DTensor's local blocks are mapped as
+    they lie, any pending sum made whole first."""
+    layout = keep_dims(t, tuple(range(t.ndim)))
+    return on_local(fn, (t,), (layout,), layout)

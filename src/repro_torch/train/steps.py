@@ -7,10 +7,16 @@ function ``train_step(state, batch) -> (state, metrics)`` that updates
 state buffers to the jitted step instead. Gradients come from
 ``torch.autograd.grad`` over detached aliases of the params, so nothing is
 left attached to the state between steps; grads of bf16 params are bf16 as
-in the reference. The sharding arguments of the reference
-(``grad_shardings``, ``act_sharding``) wait for the sharding slice.
+in the reference. Under a mesh the state and batch are DTensors:
+``act_sharding`` (a ``sharding.partition.Layout``) is the residual stream's
+layout, which the forward redistributes to at the embed and after every
+block, and the logits to before the cross-entropy; ``grad_shardings`` (a
+tree of layouts, the moments' under ZeRO-1) is where each grad is
+redistributed to before the update (ZeRO-2; without it, to its param's
+layout). The loss comes back whole on every rank.
 ``make_prefill_step`` and ``make_serve_step`` run under
-``torch.inference_mode()``: no remat, and the RG-LRU scan runs forward only.
+``torch.inference_mode()`` (the prefill on a mesh under ``no_grad``): no
+remat, and the RG-LRU scan runs forward only.
 ``generate`` is the serving loop over ``make_serve_step``.
 """
 
@@ -25,6 +31,7 @@ from ..models import layers as L
 from ..models import transformer as T
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, apply_updates, init_state
+from ..sharding.dtensor import constrain, is_dtensor
 
 CE_CHUNK = 512  # sequence chunk for the unembed + cross-entropy loop
 
@@ -37,17 +44,21 @@ def cross_entropy(logits, labels):
 
 
 def chunked_cross_entropy(params, cfg: ModelConfig, h, labels,
-                          chunk: int = CE_CHUNK):
+                          chunk: int = CE_CHUNK, act_sharding=None):
     """Unembed + cross-entropy a sequence chunk at a time, so only
-    (B, chunk, V) float32 logits are live in the forward pass."""
+    (B, chunk, V) float32 logits are live in the forward pass. Under a mesh
+    the logits take ``act_sharding`` (the vocab dim whole) first: the gold
+    logit's gather has no DTensor strategy on a split vocab."""
     B, S, _ = h.shape
     if S <= chunk:
-        return cross_entropy(T._unembed(params, cfg, h), labels)
+        return cross_entropy(
+            constrain(T._unembed(params, cfg, h), act_sharding), labels)
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of {chunk}")
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for a in range(0, S, chunk):
-        logits = T._unembed(params, cfg, h[:, a:a + chunk])
+        logits = constrain(T._unembed(params, cfg, h[:, a:a + chunk]),
+                           act_sharding)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             labels[:, a:a + chunk].long()[..., None])[..., 0]
@@ -55,13 +66,15 @@ def chunked_cross_entropy(params, cfg: ModelConfig, h, labels,
     return total / (B * S)
 
 
-def make_loss_fn(cfg: ModelConfig):
+def make_loss_fn(cfg: ModelConfig, act_sharding=None):
     def loss_fn(params, batch):
         h, aux = T.forward(params, cfg, batch["tokens"],
-                           batch.get("frontend_embeds"), return_hidden=True)
+                           batch.get("frontend_embeds"), return_hidden=True,
+                           act_sharding=act_sharding)
         S = batch["labels"].shape[1]
         nll = chunked_cross_entropy(params, cfg, h[:, -S:, :],
-                                    batch["labels"])
+                                    batch["labels"],
+                                    act_sharding=act_sharding)
         loss = nll + cfg.router_aux_coef * aux
         return loss, {"nll": nll, "aux": aux}
     return loss_fn
@@ -88,13 +101,31 @@ def _unflat(items) -> dict:
     return out
 
 
+def _whole(t):
+    """A 0-d DTensor's value as a plain tensor on every rank."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
-                    microbatches: int = 1):
+                    microbatches: int = 1, grad_shardings=None,
+                    act_sharding=None):
     """fwd + bwd + AdamW. ``microbatches`` > 1 accumulates float32 grads
     over that many slices of the batch, so live activations are
-    O(batch / microbatches)."""
+    O(batch / microbatches). ``grad_shardings`` / ``act_sharding``: the
+    layouts under a mesh (module docstring)."""
     opt_cfg = opt_cfg or AdamWConfig()
-    loss_fn = make_loss_fn(cfg)
+    loss_fn = make_loss_fn(cfg, act_sharding=act_sharding)
+
+    targets = {} if grad_shardings is None else dict(tree_leaves_with_path(
+        grad_shardings, is_leaf=lambda x: hasattr(x, "placements")))
+
+    def place(key, g, p):
+        """Grad ``g`` of param ``p`` at its layout for the update."""
+        if not is_dtensor(g):
+            return g
+        if key in targets:
+            return constrain(g, targets[key])
+        return g.redistribute(p.device_mesh, p.placements)
 
     def grad_fn(params, batch):
         flat = tree_leaves_with_path(params)
@@ -103,9 +134,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
             loss, extras = loss_fn(
                 _unflat(zip((k for k, _ in flat), leaves)), batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        return (loss.detach(), {k: v.detach() for k, v in extras.items()}), \
+        grads = [place(k, torch.zeros_like(p) if g is None else g, p)
+                 for (k, _), p, g in zip(flat, leaves, grads)]
+        return (_whole(loss.detach()),
+                {k: _whole(v.detach()) for k, v in extras.items()}), \
             _unflat(zip((k for k, _ in flat), grads))
 
     def train_step(state, batch):
@@ -114,9 +146,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
             (loss, extras), grads = grad_fn(params, batch)
         else:
             n = next(iter(batch.values())).shape[0] // microbatches
-            g_acc = _unflat((k, torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device))
-                            for k, p in tree_leaves_with_path(params))
+            g_acc = _unflat((k, place(k, torch.zeros_like(
+                p, dtype=torch.float32), p))
+                for k, p in tree_leaves_with_path(params))
             l_acc = a_acc = 0.0
             for m in range(microbatches):
                 mb = {k: v[m * n:(m + 1) * n] for k, v in batch.items()}
@@ -141,13 +173,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, act_sharding=None):
     """Inference prefill: returns only the LAST position's logits (B,1,V)
-    float32 — what the decoder needs to emit its first token."""
+    float32 — what the decoder needs to emit its first token.
+    ``act_sharding``: the residual stream's layout under a mesh, where the
+    prefill runs under ``no_grad`` (a DTensor view made in inference mode
+    fails: inference tensors have no version counter)."""
     def prefill(params, batch):
-        with torch.inference_mode():
+        with torch.no_grad() if act_sharding is not None \
+                else torch.inference_mode():
             h, _ = T.forward(params, cfg, batch["tokens"],
-                             batch.get("frontend_embeds"), return_hidden=True)
+                             batch.get("frontend_embeds"), return_hidden=True,
+                             act_sharding=act_sharding)
             return T._unembed(params, cfg, h[:, -1:, :])
     return prefill
 

@@ -16,7 +16,19 @@ waits until an in-flight async save holds its snapshot
 level 1 (node loss) is prefetched into level 0 first. ``ckpt_writers > 1``
 saves through N concurrent writer ranks (``MultiWriterCheckpointer``): the
 state is row-partitioned per save and rank 0 merge-commits the step; its
-``wait_snapshotted()`` waits for every rank's staging. Not here yet: meshes.
+``wait_snapshotted()`` waits for every rank's staging.
+
+``mesh`` (a named ``("data", "model")`` DeviceMesh, ``launch.mesh``) runs
+the loop on DTensors, one process per mesh rank, in the layouts of
+``sharding.partition.Partitioner``: the state is initialised whole from the
+same seeded generator and each rank keeps its windows (the logical values
+equal the unsharded init's), a resume reads only this rank's windows
+through ``restore(shardings=)`` onto a ``meta`` template, and the batch
+goes in at the tokens' layout. Every rank draws the global batch as host 0
+of 1 and keeps its data-parallel rows, so model-parallel ranks see the same
+rows and the run sees the batch of an unsharded run. With more than one
+rank, every rank saves its own windows into one checkpoint, committed once
+(``process_group_manager``, over a gloo group of its own).
 """
 
 from __future__ import annotations
@@ -31,8 +43,13 @@ from ..core import (CheckpointManager, EngineConfig, MultiLevelCheckpointer,
                     MultiWriterCheckpointer)
 from ..core import trace
 from ..data import DataConfig, SyntheticPipeline, host_info
+from ..core.checkpoint import mesh_device
+from ..core.multiwriter import process_group_manager
+from ..core.serialization import path_str, tree_leaves_with_path
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig
+from ..sharding.dtensor import is_dtensor
+from ..sharding.partition import Layout, Partitioner, shard_tree
 from .steps import init_train_state, make_train_step
 
 
@@ -57,22 +74,46 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  opt_cfg: AdamWConfig | None = None,
                  engine_config: EngineConfig | None = None,
-                 data_cfg: DataConfig | None = None, device="cuda"):
+                 data_cfg: DataConfig | None = None, device="cuda",
+                 mesh=None):
         if tcfg.multilevel_remote and tcfg.ckpt_writers > 1:
             raise ValueError(
                 "multilevel_remote and ckpt_writers > 1 are mutually "
                 "exclusive: the two-level flusher wraps a single manager")
+        if mesh is not None and mesh.size() > 1 and (
+                tcfg.multilevel_remote or tcfg.ckpt_writers > 1):
+            raise ValueError(
+                "a mesh of more than one rank saves through one group "
+                "checkpoint: multilevel_remote and ckpt_writers > 1 would "
+                "commit each rank's windows on their own")
         self.cfg = cfg
         self.tcfg = tcfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        # under a mesh, this rank's device of it
+        self.device = torch.device(device) if mesh is None \
+            else mesh_device(mesh)
         self.opt_cfg = opt_cfg or AdamWConfig()
         self.data_cfg = data_cfg or DataConfig(
             vocab_size=cfg.vocab_size, seq_len=256, global_batch=8,
             seed=tcfg.seed, frontend_len=cfg.frontend_len,
             frontend_dim=cfg.frontend_dim)
-        self.pipeline = SyntheticPipeline(self.data_cfg, *host_info())
+        self.grad_shardings = self.act_sharding = None
+        if mesh is None:
+            self.pipeline = SyntheticPipeline(self.data_cfg, *host_info())
+        else:
+            # the global batch on every rank (host 0 of 1), which keeps
+            # its rows of it: the tokens' layout splits the batch over data
+            self.pipeline = SyntheticPipeline(self.data_cfg, 0, 1)
+            self._mesh_layouts()
         self.ckpt = None
-        if tcfg.multilevel_remote:
+        if tcfg.ckpt_every and mesh is not None and mesh.size() > 1:
+            import torch.distributed as dist
+            self.ckpt = process_group_manager(
+                tcfg.ckpt_dir, dist.new_group(backend="gloo"),
+                engine=tcfg.ckpt_engine, config=engine_config,
+                async_save=tcfg.async_ckpt, keep=tcfg.keep,
+                streaming=tcfg.streaming_ckpt, device=self.device)
+        elif tcfg.multilevel_remote:
             self.ckpt = MultiLevelCheckpointer(
                 tcfg.ckpt_dir, tcfg.multilevel_remote,
                 engine=tcfg.ckpt_engine, config=engine_config,
@@ -106,9 +147,34 @@ class Trainer:
                 lambda: getattr(self.ckpt, "last_restore_metrics", None))
 
     # ------------------------------------------------------------------ state
+    def _mesh_layouts(self) -> None:
+        """The Partitioner's layouts of the state, the batch and the
+        residual stream."""
+        part = Partitioner(self.cfg, self.mesh)
+        self.shardings = part.state_shardings(
+            init_train_state(self.cfg, device="meta"))
+        B = self.data_cfg.global_batch
+        self.batch_layouts = {"tokens": part.tokens_sharding(B),
+                              "labels": part.tokens_sharding(B),
+                              "frontend_embeds": part.frontend_sharding(B)}
+        self.act_sharding = part.layout(part.activation_spec(B))
+        self.grad_shardings = self.shardings["opt"]["mu"]   # ZeRO-2
+
     def init_state(self):
-        return init_train_state(self.cfg, seed=self.tcfg.seed,
-                                device=self.device)
+        state = init_train_state(self.cfg, seed=self.tcfg.seed,
+                                 device=self.device)
+        if self.mesh is None:
+            return state
+        return shard_tree(state, self.shardings)
+
+    def restore_shardings(self) -> dict | None:
+        """{checkpoint key: Layout} of the train state under the mesh
+        (None without one)."""
+        if self.mesh is None:
+            return None
+        return {path_str(("train",) + tuple(p)): lay
+                for p, lay in tree_leaves_with_path(
+                    self.shardings, is_leaf=lambda x: isinstance(x, Layout))}
 
     def _full_state(self, train_state):
         return {"train": train_state, "data": self.pipeline.state_dict()}
@@ -124,7 +190,8 @@ class Trainer:
                                     device="meta")
         t0 = time.perf_counter()
         restored = self.ckpt.restore(
-            state_template=self._full_state(template), step=latest)
+            state_template=self._full_state(template), step=latest,
+            shardings=self.restore_shardings())
         self._sync()
         restore_wall = time.perf_counter() - t0
         state = restored["train"]
@@ -142,7 +209,8 @@ class Trainer:
                 restore_h2d_s=rm.h2d_seconds,
                 restore_overlap_s=rm.overlap_seconds,
                 restore_peak_staged_bytes=rm.peak_staged_bytes)
-        return state, int(state["step"])
+        step = state["step"]
+        return state, int(step.to_local() if is_dtensor(step) else step)
 
     # ------------------------------------------------------------------ run
     def run(self, initial=None) -> dict:
@@ -170,7 +238,9 @@ class Trainer:
     def _run_traced(self, initial) -> dict:
         state, start_step = initial if initial is not None \
             else self.initial_state()
-        step_fn = make_train_step(self.cfg, self.opt_cfg)
+        step_fn = make_train_step(self.cfg, self.opt_cfg,
+                                  grad_shardings=self.grad_shardings,
+                                  act_sharding=self.act_sharding)
         ckpt_block_s = 0.0
         snapshot_wait_s = 0.0            # the wait_snapshotted() part of it
         ckpt_reported_block_s = 0.0      # sum of SaveMetrics.blocking_seconds
@@ -178,6 +248,9 @@ class Trainer:
         for step in range(start_step, self.tcfg.steps):
             batch = {k: torch.as_tensor(v, device=self.device)
                      for k, v in self.pipeline.batch_at(step).items()}
+            if self.mesh is not None:
+                batch = {k: self.batch_layouts[k].distribute(v)
+                         for k, v in batch.items()}
             if self.ckpt is not None:
                 # the step updates the state in place, which an in-flight
                 # pipelined save may still be reading — barrier on the

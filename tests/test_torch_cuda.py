@@ -692,3 +692,88 @@ def test_dtensor_save_and_restore_on_the_card(cuda, tmp_path):
     finally:
         dist.destroy_process_group()
 
+
+
+@pytest.fixture
+def cuda_mesh(cuda, tmp_path):
+    """A 1x1 ("data", "model") DeviceMesh on the card (a 1-rank NCCL
+    group), torn down after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield make_host_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_rglru_scan_on_dtensors_matches_plain(cuda_mesh):
+    """``rglru_scan`` on DTensors of a CUDA mesh (batch split over data,
+    channels over model) runs the kernel on the local block through
+    ``local_map``: forward and grads bit-equal to the kernel on plain
+    tensors, one launch each way."""
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.kernels import rglru as rk
+    a, b, dh = _scan_inputs(cuda_mesh.device_type, (4, 97, 2560), 5)
+    place = (Shard(0), Shard(2))
+    leaves = [t.clone().requires_grad_(True) for t in (a, b)]
+    da = [DTensor.from_local(t, cuda_mesh, place, run_check=False)
+          .requires_grad_(True) for t in (a, b)]
+    _lib.reset_launches()
+    h = rk.rglru_scan(*da)
+    assert isinstance(h, DTensor) and h.placements == place
+    assert _lib.LAUNCHES["rglru_scan"] == 1
+    h.backward(DTensor.from_local(dh, cuda_mesh, place, run_check=False))
+    assert _lib.LAUNCHES["rglru_scan"] == 2
+    want = rk.rglru_scan(*leaves)
+    want.backward(dh)
+    assert _same(h.to_local(), want)
+    for got, ref in zip(da, leaves):
+        assert _same(got.grad.to_local(), ref.grad)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "qwen2.5-3b",
+                                  "olmoe-1b-7b", "xlstm-350m"])
+def test_mesh_trainer_on_the_card_matches_unsharded(cuda_mesh, tmp_path,
+                                                    arch):
+    """``Trainer(mesh=)`` on a 1x1 CUDA mesh (DTensor state, batch and
+    activations; B5 under ``local_map``) against the unsharded Trainer on
+    the card, narrow float32, 2 steps with a checkpoint at step 1 that a
+    second mesh Trainer resumes through ``restore(shardings=)``. Tolerance:
+    loss rtol 1e-5."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).scaled_down(layers=2, width_div=8, vocab=512) \
+        .replace(dtype="float32")
+    data = DataConfig(cfg.vocab_size, 65, 4, seed=0,
+                      frontend_len=cfg.frontend_len,
+                      frontend_dim=cfg.frontend_dim)
+    eng = EngineConfig(backend="posix", direct=False)
+
+    def run(mesh, steps, every, d):
+        t = Trainer(cfg, TrainerConfig(steps=steps, ckpt_every=every,
+                                       ckpt_dir=str(tmp_path / d),
+                                       log_every=1, async_ckpt=False),
+                    data_cfg=data, engine_config=eng, device="cuda",
+                    mesh=mesh)
+        try:
+            return t.run()
+        finally:
+            t.close()
+
+    _lib.reset_launches()
+    sharded = run(cuda_mesh, 1, 1, "mesh")
+    resumed = run(cuda_mesh, 2, 5, "mesh")
+    launches = _lib.LAUNCHES["rglru_scan"]
+    plain = run(None, 2, 0, "plain")
+    assert resumed["start_step"] == 1
+    assert isinstance(resumed["state"]["params"]["embed"], DTensor)
+    got = [m["loss"] for m in sharded["metrics"] + resumed["metrics"]]
+    np.testing.assert_allclose(got, [m["loss"] for m in plain["metrics"]],
+                               rtol=1e-5)
+    # forward and fused backward of each RG-LRU block, per step
+    assert launches == 2 * 2 * sum(k == "rglru" for k in cfg.block_pattern)

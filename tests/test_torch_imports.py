@@ -38,6 +38,9 @@ def test_every_module_imports_with_jax_blocked():
                  "engines.datastates", "engines.snapshot",
                  "engines.torchsave", "engines.remote"):
         assert f"repro_torch.core.{name}" in mods
+    for name in ("sharding.partition", "sharding.dtensor", "launch.mesh",
+                 "launch.specs", "launch.dryrun"):
+        assert f"repro_torch.{name}" in mods
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None\n"
             f"import importlib\nfor m in {mods!r}: importlib.import_module(m)\n"
@@ -55,7 +58,8 @@ def test_no_file_of_the_port_imports_the_jax_package():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
              if f.endswith(".py")]
     files += [os.path.join(ROOT, "chip_smoke.py"),
-              os.path.join(ROOT, "examples", "torch_serve_swap.py")]
+              os.path.join(ROOT, "examples", "torch_serve_swap.py"),
+              os.path.join(ROOT, "examples", "torch_elastic_reshard.py")]
     offenders = []
     for path in files:
         with open(path) as f:
