@@ -49,11 +49,13 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                manifest), and each of the four checkpoint kernels must be
                launched in (A) + (B) + (C) + (D). A tally of every byte
                written (probe, saves, flushes, uploads, promotes, phase 4's
-               and 4f's checkpoints, the CLI's, 4c, 4d, 4e's zoo example, the
-               campaign's write calls) must stay under 44 GiB; the plan is
-               checked before phase 3 starts.
-  4. training path — full-width recurrentgemma-2b at 13 of its 26 layers,
-               one whole group of its 13-block pattern (weights from a seeded
+               checkpoint, 4f's failover child's write calls and its
+               promote, 4c, 4d, 4e's zoo example, the campaign's write
+               calls) must stay under 44 GiB; the plan is checked before
+               phase 3 starts.
+  4. training path — full-width recurrentgemma-2b cut to the first 10
+               blocks of its 13-block pattern ((RG-LRU, RG-LRU, local
+               attention) x 3, RG-LRU; weights from a seeded
                torch.Generator), through the port's ``Trainer`` at batch 8 x
                255 tokens: run 1 trains 3 steps with an async checkpoint at
                step 2 (keep=1) — step 3 updates the state in place right
@@ -61,11 +63,12 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                the fingerprint kernel as the save is called; run 2, a fresh
                ``Trainer`` on the same directory, must resume at step 2 with
                every digest equal and train 2 more steps. One checkpoint of
-               17.75 GB (the full depth's 28.94 GB left no room in the
-               machine's 45 GiB of disk writes per call for 4f's), so phase
-               4 and 4e numbers at this depth are not comparable with those
-               of full-depth runs. Every loss must be finite and the RG-LRU
-               kernel must be launched.
+               15.18 GB (the full depth's 28.94 GB, and 13 layers' 17.75 GB,
+               left no room in the machine's 45 GiB of disk writes per call
+               for 4f's three copies of xlstm-350m), so phase 4 and 4e
+               numbers at this depth are not comparable with those of other
+               depths. Every loss must be finite and the RG-LRU kernel must
+               be launched.
      4b. narrow float32 configs on the card against the CPU (plain path):
                two train steps each from one set of weights and batches — the
                recurrentgemma stack, xLSTM at 255 tokens (quadratic mLSTM)
@@ -86,7 +89,7 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                moments get empty windows through ``window_fn``), each leaf
                equal to the saved state's digest; (b) 8 seeded requests of
                64-token prompts through one ``make_prefill_step`` call (the
-               RG-LRU scan once per RG-LRU block: 9 launches at
+               RG-LRU scan once per RG-LRU block: 7 launches at
                (8, 64, 2560), all on the bulk-copy path that phase 2 holds
                bit for bit at that shape) and ``steps.generate`` (the
                prompt teacher-forced through ``decode_step``, then 32
@@ -102,19 +105,27 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                share, host stream syncs) of each served model at full depth
                from ``init_params``: recurrentgemma-2b, qwen2.5-3b, and
                4f's and 4g's xlstm-350m and olmoe-1b-7b.
-     4f. the slice's path, xlstm-350m (the training CLI's default) at full
-               width and depth, no cut (24 layers of mLSTM and sLSTM blocks,
-               d_model 1024, 4 heads, up-projection 2048, vocab 50304):
-               trained, checkpointed and resumed as in phase 4 (every digest
-               equal; the fingerprint kernel digests), then served as in 4e
-               — params swapped in from the checkpoint with cold reads, 8
-               requests prefilled, 32 greedy tokens through the mLSTM and
-               sLSTM decode caches in bf16 (decode vs prefill reported: at
-               this depth bf16 takes the two forms apart, in the reference
-               too), then again in float32 on the same weights, decode
-               within 0.05 of the prefill; then
-               ``python -m repro_torch.launch.train --steps 4
-               --ckpt-every 2`` with its other defaults; last, one train
+     4f. the slice's path, failover: xlstm-350m (the training CLI's
+               default) at full width and depth, no cut (24 layers of mLSTM
+               and sLSTM blocks, d_model 1024, 4 heads, up-projection 2048,
+               vocab 50304). (i) ``python -m repro_torch.launch.train
+               --arch xlstm-350m --full --remote-dir R --ckpt-every 2`` is
+               SIGKILLed once step 2 is committed at level 1 and step 4's
+               save has begun at level 0; (ii) a Trainer of the same
+               arguments resumes step 2 from level 0, skipping the torn
+               step, digests every leaf (the fingerprint kernel) and re-runs
+               steps 2 and 3, each loss within 1e-6 relative of (i)'s, and
+               saves nothing; (iii) level 0 is wiped and a third restores
+               step 2 from level 1 through the prefetcher, every digest
+               equal to (ii)'s. Kill-to-resume wall, the level-1 flush
+               (seconds, bytes, GB/s, seen by this script's 5 ms watch) and
+               the node-loss restore wall and read stall are reported. Then
+               step 2 is served as in 4e — params swapped in with cold
+               reads, 8 requests prefilled, 32 greedy tokens through the
+               mLSTM and sLSTM decode caches in bf16 (decode vs prefill
+               reported: at this depth bf16 takes the two forms apart, in
+               the reference too), then again in float32 on the same
+               weights, decode within 0.05 of the prefill; last, one train
                step of one full-width (mLSTM, sLSTM) group under
                torch.profiler.
      4g. full-width olmoe-1b-7b (16 layers, 64 experts, top-8; 6.92 B
@@ -128,7 +139,7 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                leaf a DTensor whose local block equals the saved state's
                digest; steps 2 and 3 on DTensors (nothing written), each
                loss within 1e-4 relative of run 2's, B5 launched through
-               ``local_map`` 27 times a step; step walls beside run 1's
+               ``local_map`` 21 times a step; step walls beside run 1's
                and run 2's, restore wall, peak memory; then a step 4 on
                the mesh under torch.profiler (kernel time and the host's
                operator calls beside run 2's profile). (b) after 4f's run 2 has checked
@@ -147,7 +158,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel JSON (launches summed over phases 3, 4, 4e, 4f and 4h (a),
 each counted from zero), and the one before that the nvidia-smi line. The run
 needs one card, the repository's ``src/`` and ``examples/`` beside this
-file, and room for one ~18 GB checkpoint under ``build/``.
+file, and room for one ~16 GB checkpoint under ``build/``.
 """
 
 from __future__ import annotations
@@ -187,17 +198,21 @@ TRAINING_KERNELS = ("rglru_scan",)
 TRAIN_SHAPE = (8, 255, 2560)       # (batch, tokens, lru_dim) of phase 4
 SERVE_RGLRU = (8, 64, 2560)        # the same of 4e's prefill (SERVE_SHAPE)
 # The chip machine takes at most 45 GiB of disk writes per call, deleted
-# files included. Phase 4 writes one recurrentgemma-2b checkpoint at 13 of
-# its 26 layers (one whole group of its 13-block pattern, every width kept:
-# 17.75 GB; the full depth's 28.94 GB left no room for phase 4f's
-# xlstm-350m checkpoint of ~3.4 GB), and phase 3 runs qwen2.5-3b at a cut
+# files included. Phase 4 writes one recurrentgemma-2b checkpoint at the
+# first 10 blocks of its 13-block pattern (every width kept: 15.18 GB; the
+# full depth's 28.94 GB and 13 layers' 17.75 GB left no room for phase 4f's
+# failover, which writes xlstm-350m's 4.29 GB three times: level 0, level
+# 1 and the promote after node loss), and phase 3 runs qwen2.5-3b at a cut
 # depth: every width kept, 1 of its 36 stacked layers (~1.57 GB per save
 # with quantized moments; nine such saves, flushes, uploads and promotes, a
 # 512 MiB probe, and (D)'s 4-writer save of ~2.49 GB: the stacked block
 # leaves, leading dim 1, are replicated on every writer rank).
-TRAIN_LAYERS = 13
+TRAIN_LAYERS = 10
 XLSTM_ARCH = "xlstm-350m"          # phase 4f: the CLI's default, no cut
 XLSTM_KERNELS = ("fingerprint_chunks",)   # 4f: the digests of its leaves
+FAILOVER_CKPT_EVERY = 2            # 4f (i): step 2 saved, step 4's torn
+TORN_ALLOWANCE = 256 << 20         # 4f (i): the torn save's writes before
+                                   # the kill (a 5 ms watch; ~1 GB/s disk)
 MOE_ARCH = "olmoe-1b-7b"           # phase 4g: served, never checkpointed
 MOE_GATED_CAPACITY = 8.0           # no drops: prefill and decode route
 #                                    alike (tests/test_models.py)
@@ -817,30 +832,21 @@ def multi_writer_estimate(tensors: dict, quant: set, writers: int) -> int:
 
 def planned_writes(save_bytes: int, probe_bytes: int,
                    train_bytes: int, multi_bytes: int,
-                   zoo_bytes: int, xlstm_bytes: int,
-                   cli_bytes: int) -> dict:
+                   zoo_bytes: int, xlstm_bytes: int) -> dict:
     """What the run will write: the probe; (A) a save, its level-1 flush
     and the promote on restore; (B) step 1 and its upload (the delta steps
     are a few MB); (C) one save per engine; (D) one 4-writer save
     (``multi_bytes``); phase 4's one checkpoint; 4e's zoo example
-    (``zoo_bytes``); 4f's one xlstm-350m checkpoint and the CLI's saves
-    (``cli_bytes``); and 1 GiB for the delta steps, manifests, 4c's and
-    4d's narrow saves, the chaos campaign and alignment."""
+    (``zoo_bytes``); 4f's failover: xlstm-350m's step 2 at level 0, its
+    level-1 flush and its promote after node loss, and what the torn save
+    of step 4 may write before the kill (``TORN_ALLOWANCE``); and 1 GiB for
+    the delta steps, manifests, 4c's and 4d's narrow saves, the chaos
+    campaign and alignment."""
     return {"probe": probe_bytes, "(A)": 3 * save_bytes,
             "(B)": 2 * save_bytes, "(C)": len(ENGINE_ORDER) * save_bytes,
             "(D)": multi_bytes, "phase 4": train_bytes, "4e zoo": zoo_bytes,
-            "4f": xlstm_bytes, "4f CLI": cli_bytes, "margin": 1 << 30}
-
-
-def cli_estimate() -> int:
-    """Bytes 4f's CLI run writes at most: its two saves (steps 2 and 4) of
-    the CLI's default reduced config."""
-    from repro_torch.launch import train as launch_train
-    from repro_torch.train.steps import init_train_state
-    args = launch_train.parser().parse_args([])
-    cfg = launch_train.build_config(args)
-    return 2 * state_bytes(flat_leaves(init_train_state(cfg,
-                                                        device="meta")))
+            "4f failover": 3 * xlstm_bytes, "4f torn step": TORN_ALLOWANCE,
+            "margin": 1 << 30}
 
 
 def stall(root: str) -> dict:
@@ -1515,9 +1521,11 @@ def device_profile(prof, wall_s: float, steps: int, top: int = 8,
 
 def train_config():
     """Phase 4's model: recurrentgemma-2b at ``TRAIN_LAYERS`` of its 26
-    layers, one whole group of its 13-block pattern, every width kept."""
+    layers, the first blocks of its 13-block pattern, every width kept."""
     from repro_torch.configs import get_config
-    return get_config("recurrentgemma-2b").replace(num_layers=TRAIN_LAYERS)
+    cfg = get_config("recurrentgemma-2b")
+    return cfg.replace(num_layers=TRAIN_LAYERS,
+                       block_pattern=cfg.block_pattern[:TRAIN_LAYERS])
 
 
 def run_training(cfg, root: str, tally: WriteTally, *, phase: str,
@@ -2106,7 +2114,7 @@ def card_vs_cpu_decode(steps: int = 24) -> dict:
 def serve_path(root: str, zoo_root: str, tally: WriteTally,
                params_digests: dict) -> dict:
     """Phase 4e: the serving path. (a) full-width recurrentgemma-2b's
-    params (13 of 26 layers) swapped in from phase 4's checkpoint under
+    params (10 of 26 layers) swapped in from phase 4's checkpoint under
     ``root`` and checked against its digests, (b) served; (c) full-width
     qwen2.5-3b, initialised on the card, served; (d) the zoo example on
     the card; (e) a narrow decode on the card against the CPU; last, each
@@ -2194,33 +2202,248 @@ def decode_profiles() -> dict:
 
 
 # ------------------------------------------------------------ phases 4f, 4g
-def xlstm_path(root: str, cli_root: str, tally: WriteTally) -> dict:
+def cli_args(l0: str, l1: str, *extra: str) -> list:
+    """The failover child's command-line arguments (4f): full xlstm-350m,
+    two-level, its other options at their defaults."""
+    return ["--arch", XLSTM_ARCH, "--full", "--ckpt-dir", l0, "--remote-dir",
+            l1, "--log-every", "1", *extra]
+
+
+def proc_written(pid: int) -> int | None:
+    """``wchar`` of /proc/<pid>/io: what a child passed to write calls so
+    far (None when it cannot be read)."""
+    try:
+        with open(f"/proc/{pid}/io") as f:
+            for line in f:
+                if line.startswith("wchar:"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return None
+
+
+def failover_child(l0: str, l1: str, tally: WriteTally
+                   ) -> tuple[dict, float]:
+    """4f (i): the training CLI as the failover child, SIGKILLed once step
+    2 is committed at level 1 and step 4's save has begun at level 0 (its
+    ``.tmp-`` dir exists), watched every 5 ms. Returns its logged losses,
+    the flush as the watch saw it and what the kill left, and the kill's
+    time (``time.perf_counter``)."""
+    import signal
+    import threading
+    from repro_torch.core.checkpoint import step_dir_name
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (SRC, os.environ.get("PYTHONPATH", "")) if p))
+    torn_step = 2 * FAILOVER_CKPT_EVERY
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *cli_args(
+        l0, l1, "--ckpt-every", str(FAILOVER_CKPT_EVERY), "--steps",
+        str(torn_step + 2))]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, env=env, cwd=HERE, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    lines: list[str] = []
+
+    def read():
+        for line in child.stdout:
+            lines.append(line.rstrip("\n"))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    step2 = step_dir_name(FAILOVER_CKPT_EVERY)
+    seen: dict = {}
+    written = None
+    try:
+        while True:
+            now = time.perf_counter()
+            for name, path in (("level0", os.path.join(l0, step2)),
+                               ("level1", os.path.join(l1, step2))):
+                if name not in seen and os.path.exists(
+                        os.path.join(path, "manifest.json")):
+                    seen[name] = now
+            torn = [n for n in (os.listdir(l0) if os.path.isdir(l0) else ())
+                    if n.startswith(step_dir_name(torn_step) + ".tmp-")]
+            written = proc_written(child.pid) or written
+            if "level1" in seen and torn:
+                child.send_signal(signal.SIGKILL)
+                t_kill = time.perf_counter()
+                break
+            if child.poll() is not None:
+                reader.join(timeout=10)
+                fail(f"4f (i) the child exited {child.returncode} before "
+                     f"the kill:\n" + "\n".join(lines[-40:]))
+            if now - t0 > 900:
+                fail("4f (i) no save of step 4 within 900 s")
+            time.sleep(0.005)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+        reader.join(timeout=10)
+    left = {"level0": sorted(os.listdir(l0)), "level1": sorted(os.listdir(l1))}
+    if left["level0"][:1] != [step2] or len(left["level0"]) != 2 \
+            or left["level1"] != [step2]:
+        fail(f"4f (i) the kill left {left}")
+    losses = {}
+    for line in lines:
+        if line.startswith("step "):
+            _, step, _, loss, _, secs = line.split()
+            losses[int(step)] = (float(loss), float(secs))
+    if sorted(losses) != list(range(torn_step)) or not all(
+            math.isfinite(x) for x, _ in losses.values()):
+        fail(f"4f (i) the child logged {losses}")
+    flushed = du(os.path.join(l1, step2))
+    flush_s = seen["level1"] - seen["level0"]
+    # write calls miss what io_uring writes, and /proc may be unreadable:
+    # at least step 2's two copies and the torn save's allowance
+    tallied = max(written or 0, du(os.path.join(l0, step2)) + flushed
+                  + TORN_ALLOWANCE)
+    tally.add("4f (i) failover child", tallied)
+    out = dict(losses={s: x for s, (x, _) in sorted(losses.items())},
+               step_s={s: t for s, (_, t) in sorted(losses.items())},
+               kill_s=t_kill - t0, flush_s=flush_s, flush_bytes=flushed,
+               flush_gbps=flushed / flush_s / 1e9, write_calls=written,
+               tallied_bytes=tallied, left=left)
+    log(f"4f (i) {' '.join(cmd[1:4])} ... killed {out['kill_s']:.1f} s after "
+        f"its start (step walls " + " / ".join(
+            f"{t:.3f}" for t in out["step_s"].values()) + " s); level-1 "
+        f"flush of step 2 as watched: {flushed} B in {flush_s:.3f} s "
+        f"({out['flush_gbps']:.3f} GB/s); the kill left {left}; the child "
+        f"passed {written} B to write calls, tallied {tallied} B")
+    return out, t_kill
+
+
+def failover_path(cfg, root: str, tally: WriteTally, on_resume
+                  ) -> tuple[dict, dict]:
+    """Phase 4f (i)-(iii): full xlstm-350m killed mid-save, resumed from
+    level 0, recovered from level 1 after node loss (see ``failover_child``
+    and the module docstring). ``on_resume`` is called with (ii)'s restored
+    state once its losses are checked. Returns the measurements and step
+    2's digests; step 2 is left at level 0 (promoted) under ``root``."""
+    import torch
+    from repro_torch.core.checkpoint import step_dir_name
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.steps import init_train_state
+
+    def trainer(steps: int):
+        # saves every 5 steps: (ii) and (iii) stop before they save again
+        args = launch_train.parser().parse_args(cli_args(
+            l0, l1, "--ckpt-every", "5", "--steps", str(steps)))
+        return launch_train.build_trainer(args)
+
+    l0, l1 = os.path.join(root, "l0"), os.path.join(root, "l1")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    total = state_bytes(flat_leaves(init_train_state(cfg, device="meta")))
+    free = shutil.disk_usage(root).free
+    if free < 3 * total + (2 << 30):
+        fail(f"{root}: {free} B free, the failover needs three copies of "
+             f"{total} B")
+    log(f"4f failover path: {cfg.name}, {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}; train state {total} B")
+    _lib.reset_launches()
+    out: dict = {"state_bytes": total}
+    out["run1"], t_kill = failover_child(l0, l1, tally)
+    step = FAILOVER_CKPT_EVERY
+
+    # (ii) the restart: step 2 from level 0, the torn step skipped
+    t2 = trainer(2 * step)
+    try:
+        after_gc = sorted(os.listdir(l0))
+        state, start = t2.initial_state()
+        sync(t2.device)
+        resumed = time.perf_counter()
+        if start != step:
+            fail(f"4f (ii) resumed at step {start}, not {step}")
+        saved = digests(state)
+        r2 = t2.run((state, start))
+        for m in r2["metrics"]:
+            want = out["run1"]["losses"][m["step"]]
+            if abs(m["loss"] - want) > 1e-6 * abs(want):
+                fail(f"4f (ii) step {m['step']} loss {m['loss']!r}, the "
+                     f"killed run's {want!r}")
+        if [m["step"] for m in r2["metrics"]] != [step, step + 1]:
+            fail(f"4f (ii) re-ran steps {r2['metrics']}")
+    finally:
+        t2.close()
+    out["run2"] = dict(
+        after_gc=after_gc, torn_reaped=len(after_gc) == 1,
+        kill_to_resume_s=resumed - t_kill,
+        restore=dict(t2.restore_attr),
+        losses={m["step"]: m["loss"] for m in r2["metrics"]},
+        step_s={m["step"]: m["seconds"] for m in r2["metrics"]})
+    del state, r2
+    torch.cuda.empty_cache()
+    log(f"4f (ii) resumed step {step} from level 0 "
+        f"{out['run2']['kill_to_resume_s']:.3f} s after the kill (restore "
+        f"{out['run2']['restore']['restore_seconds']:.3f} s); level 0 after "
+        f"the start-up reap: {after_gc}; steps {step} and {step + 1} "
+        f"re-run, losses {out['run2']['losses']} equal the killed run's "
+        f"within 1e-6 relative")
+
+    # (iii) node loss: level 0 gone, step 2 prefetched from level 1
+    shutil.rmtree(l0)
+    t3 = trainer(step)
+    try:
+        state, start = t3.initial_state()
+        rm = t3.ckpt.last_restore_metrics
+        if start != step:
+            fail(f"4f (iii) resumed at step {start}, not {step}")
+        got = digests(state)
+        bad = [k for k in saved if not torch.equal(got[k], saved[k])]
+        if got.keys() != saved.keys() or bad:
+            fail(f"4f (iii) {len(bad)} leaves restored from level 1 differ "
+                 f"from step {step} as saved, e.g. {bad[:3]}")
+        on_resume(state)
+    finally:
+        t3.close()
+    del state
+    torch.cuda.empty_cache()
+    if sorted(os.listdir(l0)) != [step_dir_name(step)]:
+        fail(f"4f (iii) level 0 holds {sorted(os.listdir(l0))} after the "
+             f"prefetch")
+    tally.add("4f (iii) promote at level 0", du(l0))
+    out["run3"] = dict(restore=dict(t3.restore_attr),
+                       prefetch_s=rm.prefetch_seconds)
+    r3 = out["run3"]["restore"]
+    log(f"4f (iii) node loss: step {step} restored from level 1 through the "
+        f"prefetcher in {r3['restore_seconds']:.3f} s (read stall "
+        f"{r3['restore_read_stall_s']:.3f} s, prefetch "
+        f"{rm.prefetch_seconds:.3f} s), promoted to level 0; "
+        f"{len(saved)} leaf digests equal step {step}'s as saved")
+    out["launches"] = {k: _lib.LAUNCHES[k] for k in XLSTM_KERNELS}
+    log(f"4f kernel launches over (i)-(iii): {out['launches']}")
+    for name, count in out["launches"].items():
+        if count <= 0:
+            fail(f"kernel {name} was never launched on the 4f failover path")
+    return out, saved
+
+
+def xlstm_path(root: str, tally: WriteTally) -> dict:
     """Phase 4f, the slice's path: full-width, full-depth xlstm-350m (24
     layers, d_model 1024, 4 heads, up-projection 2048, vocab 50304; no cut)
-    trained through the port's Trainer as phase 4 is (run 1: 3 steps, an
-    async checkpoint at step 2, step 3 in place; run 2 resumes step 2 with
-    every digest equal and trains 2 more), then served: the checkpoint's
-    params swapped in (reads made cold, params only through ``window_fn``)
-    and ``SERVE_SHAPE`` requests prefilled and decoded through the mLSTM
-    and sLSTM caches in bf16 (decode vs prefill reported), then again on
-    the same weights in float32 under the ``SERVE_TOL`` yardstick. Between
-    the resume and the swap-in, phase 4h (b): the checkpoint restored onto
-    a 2x2 mesh of CPU ranks. Last, the training CLI once with its defaults
-    (reduced xlstm-350m)."""
+    killed mid-save, resumed and recovered from level 1
+    (``failover_path``), then served from the recovered step 2: its params
+    swapped in (reads made cold, params only through ``window_fn``) and
+    ``SERVE_SHAPE`` requests prefilled and decoded through the mLSTM and
+    sLSTM caches in bf16 (decode vs prefill reported), then again on the
+    same weights in float32 under the ``SERVE_TOL`` yardstick. Between the
+    recovery and the swap-in, phase 4h (b): step 2 restored onto a 2x2
+    mesh of CPU ranks."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.serialization import tree_map_with_path
     cfg = get_config(XLSTM_ARCH)
+    l0 = os.path.join(root, "l0")
     try:
         windows: dict = {}
-        out, saved = run_training(
-            cfg, root, tally, phase="4f", kernels=XLSTM_KERNELS,
-            profile=False, on_resume=lambda state: windows.update(
-                window_crcs(cfg, state, MESH_RESTORE)))
+        out, saved = failover_path(cfg, root, tally, lambda state:
+                                   windows.update(window_crcs(
+                                       cfg, state, MESH_RESTORE)))
         saved = param_digests(saved)
-        out["mesh_restore"] = cpu_mesh_restore(cfg, root, windows)
-        out["swap_in_reads"] = cold_reads(root)
-        params, out["swap_in"] = swap_in(root, "cuda", phase="4f")
+        out["mesh_restore"] = cpu_mesh_restore(cfg, l0, windows)
+        out["swap_in_reads"] = cold_reads(l0)
+        params, out["swap_in"] = swap_in(l0, "cuda", phase="4f")
         check_params(params, saved)
         log(f"4f: {len(saved)} swapped-in params equal the saved state's "
             f"digests")
@@ -2241,21 +2464,20 @@ def xlstm_path(root: str, cli_root: str, tally: WriteTally) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    r1, r2, sv = out["run1"], out["run2"], out["serve"]
-    log(f"4f {cfg.name} summary: step wall run 1 "
-        + " / ".join(f"{m['seconds']:.3f}" for m in r1["steps"])
-        + ", run 2 "
-        + " / ".join(f"{m['seconds']:.3f}" for m in r2["steps"])
-        + f" s; checkpoint stall {r1['ckpt_blocking_s']:.3f} s; save wall "
-        f"{r1['saves'][0]['wall_s']:.3f} s; resume "
-        f"{r2['restore']['restore_seconds']:.3f} s; peak "
-        f"{max(r1['peak_device_bytes'], r2['peak_device_bytes'])} B; bf16 "
-        f"prefill {sv['prefill_s'] * 1e3:.2f} ms, decode median "
+    r1, r2, r3, sv = out["run1"], out["run2"], out["run3"], out["serve"]
+    log(f"4f {cfg.name} summary: step wall (i) " + " / ".join(
+        f"{t:.3f}" for t in r1["step_s"].values()) + ", (ii) " + " / ".join(
+        f"{t:.3f}" for t in r2["step_s"].values()) + f" s; level-1 flush "
+        f"{r1['flush_s']:.3f} s for {r1['flush_bytes']} B "
+        f"({r1['flush_gbps']:.3f} GB/s); kill to resume "
+        f"{r2['kill_to_resume_s']:.3f} s; node-loss restore "
+        f"{r3['restore']['restore_seconds']:.3f} s (read stall "
+        f"{r3['restore']['restore_read_stall_s']:.3f} s); bf16 prefill "
+        f"{sv['prefill_s'] * 1e3:.2f} ms, decode median "
         f"{sv['decode_median_ms']:.2f} ms per step, "
         f"{sv['tokens_per_s']:.1f} tokens/s, decode vs prefill "
         f"{sv['decode_vs_prefill']:.5f}; float32 decode vs prefill "
         f"{out['serve_f32']['decode_vs_prefill']:.2e} (limit {SERVE_TOL})")
-    out["cli"] = train_cli(cli_root, tally)
     out["step_profile"] = xlstm_step_profile()
     return out
 
@@ -2293,48 +2515,6 @@ def xlstm_step_profile() -> dict:
     return device_profile(prof, wall, 1, label=f"4f {cfg.name} train step "
                           f"profile, one group at full width ({B} x {S} "
                           f"tokens)")
-
-
-def train_cli(root: str, tally: WriteTally) -> dict:
-    """4f, last: ``python -m repro_torch.launch.train --steps 4
-    --ckpt-every 2`` on the card, every other option at its default (the
-    reference's default architecture, xlstm-350m, reduced), its
-    checkpoints under ``root``. Its loss must be finite and its step 4
-    saved."""
-    import math
-    shutil.rmtree(root, ignore_errors=True)
-    report = root + ".json"
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (SRC, os.environ.get("PYTHONPATH", "")) if p))
-    t0 = time.perf_counter()
-    try:
-        run = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--steps",
-             "4", "--ckpt-every", "2", "--ckpt-dir", root, "--json-out",
-             report], env=env, cwd=HERE, capture_output=True, text=True,
-            timeout=300)
-        seconds = time.perf_counter() - t0
-        if run.returncode != 0:
-            fail(f"4f CLI exited {run.returncode}:\n{run.stdout[-2000:]}\n"
-                 f"{run.stderr[-4000:]}")
-        tally.add("4f CLI checkpoints", du(root))
-        with open(report) as f:
-            metrics = json.load(f)["metrics"]
-        steps = sorted(os.listdir(root))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-        if os.path.exists(report):
-            os.remove(report)
-    summary = [ln for ln in run.stdout.splitlines() if ln.startswith("arch=")]
-    if not summary or not summary[0].startswith("arch=xlstm-350m "):
-        fail(f"4f CLI ran {summary}, not the default xlstm-350m")
-    if not metrics or not all(math.isfinite(m["loss"]) for m in metrics) \
-            or "step_00000004" not in steps:
-        fail(f"4f CLI: metrics {metrics}, checkpoint dirs {steps}")
-    log(f"4f CLI with its defaults: {summary[0]} in {seconds:.1f} s "
-        f"(process included); checkpoints {steps}")
-    return dict(seconds=seconds, summary=summary[0], steps=steps,
-                losses=[m["loss"] for m in metrics])
 
 
 # ------------------------------------------------------------ phase 4h
@@ -2797,8 +2977,7 @@ def main(argv=None) -> int:
                                                  device="meta"))),
         multi_writer_estimate(tensors, quant, WRITERS), zoo_estimate(),
         state_bytes(flat_leaves(init_train_state(get_config(XLSTM_ARCH),
-                                                 device="meta"))),
-        cli_estimate())
+                                                 device="meta"))))
     log(f"write plan: {sum(plan.values())} B "
         f"({sum(plan.values()) / 2**30:.2f} GiB, limit "
         f"{WRITE_LIMIT / 2**30:.1f} GiB): " + ", ".join(
@@ -2817,7 +2996,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"checkpoint path: {time.perf_counter() - t0:.1f} s")
 
-    # phase 4: training path, full width at 13 of 26 layers; phase 4e, the
+    # phase 4: training path, full width at 10 of 26 layers; phase 4e, the
     # serving path, swaps in its checkpoint
     train_root = os.path.join(HERE, "build", "smoke_train")
     t0 = time.perf_counter()
@@ -2841,8 +3020,7 @@ def main(argv=None) -> int:
     del saved
     # phase 4f: the slice's path, full xlstm-350m trained, resumed, served
     t0 = time.perf_counter()
-    xlstm = xlstm_path(os.path.join(HERE, "build", "smoke_xlstm"),
-                       os.path.join(HERE, "build", "smoke_cli"), tally)
+    xlstm = xlstm_path(os.path.join(HERE, "build", "smoke_xlstm"), tally)
     log(f"4f: {time.perf_counter() - t0:.1f} s")
     # phase 4g: full olmoe-1b-7b served
     t0 = time.perf_counter()

@@ -19,6 +19,8 @@ same name:
                elastic N→M restore; the same commit over torch.distributed
   tiered       tier-to-tier transfer engine: extent-hedged flush + prefetch
   multilevel   local→shared-directory two-level flush, hedged stragglers
+  grouplevel   the same two levels for the ranks of a torch.distributed
+               group: one group checkpoint, flushed once by rank 0
   remote       object-store level-2 tier: hedged range reads, dedup upload,
                direct-to-pipeline remote restore
   faults/chaos fault injection, scrubbing, and the seeded chaos campaign
@@ -34,6 +36,7 @@ from .engines import (AggregatedEngine, ChecksumError, CREngine,
                       DataStatesEngine, EngineConfig, ReadReq, ReadStream,
                       RemoteReadEngine, SaveItem, SaveSpec, SaveStream,
                       SnapshotEngine, TorchSaveEngine, make_cr_engine)
+from .grouplevel import GroupMultiLevelCheckpointer
 from .manifest import ChunkRef, Manifest, ManifestError
 from .multilevel import FlushStats, MultiLevelCheckpointer
 from .multiwriter import (CommitCoordinator, DistGroup, InProcessGroup,

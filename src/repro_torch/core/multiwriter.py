@@ -274,6 +274,25 @@ class CommitCoordinator:
             self._tmp.pop(step, None)
 
 
+class GroupCheckpointManager(CheckpointManager):
+    """The ``CheckpointManager`` of one rank of a group checkpoint. Its
+    startup reap of stale staging dirs runs on rank 0 alone while the other
+    ranks wait at a barrier: after the whole group was killed, N fresh
+    managers would otherwise reap (and roll back) the same torn dirs at
+    once. Retention needs no such care: it runs in rank 0's publish."""
+
+    def __init__(self, directory: str, group: DistGroup, **kw):
+        self._startup_group = group
+        super().__init__(directory, **kw)
+
+    def _gc_tmp(self) -> None:
+        group = self._startup_group
+        if group.rank == 0:
+            super()._gc_tmp()
+        if group.num_ranks > 1:
+            group.barrier()
+
+
 def process_group_manager(directory: str, group=None, *,
                           config: EngineConfig | None = None,
                           **kw) -> CheckpointManager:
@@ -281,11 +300,11 @@ def process_group_manager(directory: str, group=None, *,
     ``torch.distributed`` group: every process saves its own shards (its
     DTensor local windows) into one shared checkpoint, and the step commits
     once through the two-phase protocol over ``DistGroup``. All processes
-    must call ``save`` together."""
+    must create it and call ``save`` together."""
     cfg = replace(config) if config is not None else EngineConfig()
     cfg.truncate = False        # ranks share files under SINGLE_FILE
-    mgr = CheckpointManager(directory, config=cfg, **kw)
     dist_group = DistGroup(group)
+    mgr = GroupCheckpointManager(directory, dist_group, config=cfg, **kw)
     mgr.coordinator = CommitCoordinator(dist_group)
     mgr.allgather = dist_group.allgather
     return mgr

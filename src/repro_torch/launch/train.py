@@ -13,10 +13,14 @@ each fit one 80 GB H100). ``--remote-dir`` adds a level-1 directory
 the state and batch as DTensors (``Trainer(mesh=)``): launch it with
 ``torchrun --nproc-per-node D*M -m repro_torch.launch.train --mesh DxM``,
 or run it directly for ``1x1``. The process group is NCCL on the card and
-gloo with ``--device cpu``; a mesh whose D*M is not the world size fails,
-and so does ``--remote-dir`` on a mesh of more than one rank (its ranks
-save into one group checkpoint).
-Only rank 0 prints the report and writes ``--json-out``.
+gloo with ``--device cpu``; a mesh whose D*M is not the world size fails.
+On a mesh of more than one rank every rank saves its windows into one
+group checkpoint under ``--ckpt-dir``; with ``--remote-dir`` rank 0 flushes
+each committed step of it to level 1, and a restart on any mesh shape
+resumes from level 1 when ``--ckpt-dir`` was lost, each rank reading its
+own windows.
+Rank 0 prints each logged step's loss as it goes (``step N loss X``), the
+report at the end, and writes ``--json-out``.
 """
 
 from __future__ import annotations
@@ -115,7 +119,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_train_ckpt"))
     ap.add_argument("--remote-dir", default="",
-                    help="level-1 directory for two-level checkpointing")
+                    help="level-1 directory for two-level checkpointing; "
+                    "on a mesh, rank 0 flushes the group checkpoint there")
     ap.add_argument("--engine", default="aggregated", choices=sorted(ENGINES))
     ap.add_argument("--strategy", default="single_file",
                     choices=["single_file", "file_per_process",
@@ -142,6 +147,10 @@ def main(argv=None) -> None:
 
 def run(args, rank: int = 0) -> None:
     trainer = build_trainer(args)
+    if not rank:
+        trainer.on_log = lambda m: print(
+            f"step {m['step']} loss {m['loss']!r} seconds "
+            f"{m['seconds']:.3f}", flush=True)
     try:
         out = trainer.run()
     finally:

@@ -28,7 +28,14 @@ goes in at the tokens' layout. Every rank draws the global batch as host 0
 of 1 and keeps its data-parallel rows, so model-parallel ranks see the same
 rows and the run sees the batch of an unsharded run. With more than one
 rank, every rank saves its own windows into one checkpoint, committed once
-(``process_group_manager``, over a gloo group of its own).
+(``process_group_manager``, over a gloo group of its own). With
+``multilevel_remote`` too, that group checkpoint is two-level
+(``GroupMultiLevelCheckpointer``): rank 0 flushes each committed step to
+level 1, every rank raises a failed flush, the ranks agree on the step to
+resume, and after node loss each rank prefetches its own windows' extents
+from level 1 into one staging dir that rank 0 promotes — on any mesh shape,
+so a run saved on 2x2 resumes on 1x4. ``ckpt_writers > 1`` is refused on
+such a mesh: its ranks are already the checkpoint's writers.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from ..core import (CheckpointManager, EngineConfig, MultiLevelCheckpointer,
 from ..core import trace
 from ..data import DataConfig, SyntheticPipeline, host_info
 from ..core.checkpoint import mesh_device
+from ..core.grouplevel import GroupMultiLevelCheckpointer
 from ..core.multiwriter import process_group_manager
 from ..core.serialization import path_str, tree_leaves_with_path
 from ..models.config import ModelConfig
@@ -80,12 +88,13 @@ class Trainer:
             raise ValueError(
                 "multilevel_remote and ckpt_writers > 1 are mutually "
                 "exclusive: the two-level flusher wraps a single manager")
-        if mesh is not None and mesh.size() > 1 and (
-                tcfg.multilevel_remote or tcfg.ckpt_writers > 1):
+        group_ckpt = mesh is not None and mesh.size() > 1
+        if group_ckpt and tcfg.ckpt_writers > 1:
             raise ValueError(
                 "a mesh of more than one rank saves through one group "
-                "checkpoint: multilevel_remote and ckpt_writers > 1 would "
-                "commit each rank's windows on their own")
+                "checkpoint whose writers are the mesh's ranks; "
+                "ckpt_writers > 1 splits one process's state over writer "
+                "threads, which has no one-process-per-rank counterpart yet")
         self.cfg = cfg
         self.tcfg = tcfg
         self.mesh = mesh
@@ -106,13 +115,21 @@ class Trainer:
             self.pipeline = SyntheticPipeline(self.data_cfg, 0, 1)
             self._mesh_layouts()
         self.ckpt = None
-        if tcfg.ckpt_every and mesh is not None and mesh.size() > 1:
+        if group_ckpt and (tcfg.multilevel_remote or tcfg.ckpt_every):
             import torch.distributed as dist
-            self.ckpt = process_group_manager(
-                tcfg.ckpt_dir, dist.new_group(backend="gloo"),
-                engine=tcfg.ckpt_engine, config=engine_config,
-                async_save=tcfg.async_ckpt, keep=tcfg.keep,
-                streaming=tcfg.streaming_ckpt, device=self.device)
+            group = dist.new_group(backend="gloo")
+            if tcfg.multilevel_remote:
+                self.ckpt = GroupMultiLevelCheckpointer(
+                    tcfg.ckpt_dir, tcfg.multilevel_remote, group,
+                    engine=tcfg.ckpt_engine, config=engine_config,
+                    async_save=False, keep=tcfg.keep,
+                    streaming=tcfg.streaming_ckpt, device=self.device)
+            else:
+                self.ckpt = process_group_manager(
+                    tcfg.ckpt_dir, group, engine=tcfg.ckpt_engine,
+                    config=engine_config, async_save=tcfg.async_ckpt,
+                    keep=tcfg.keep, streaming=tcfg.streaming_ckpt,
+                    device=self.device)
         elif tcfg.multilevel_remote:
             self.ckpt = MultiLevelCheckpointer(
                 tcfg.ckpt_dir, tcfg.multilevel_remote,
@@ -135,6 +152,7 @@ class Trainer:
                 async_save=tcfg.async_ckpt, keep=tcfg.keep,
                 streaming=tcfg.streaming_ckpt, device=self.device)
         self.metrics_log: list[dict] = []
+        self.on_log = None               # called with each logged dict
         self.save_log: list = []         # SaveMetrics of every save, in order
         self.restore_attr: dict = {}
         # one queryable tree over every Stats producer in the stack
@@ -269,6 +287,8 @@ class Trainer:
                 # reading the metrics waited for the step: host wall of it
                 m["seconds"] = time.perf_counter() - t_step
                 self.metrics_log.append(m)
+                if self.on_log is not None:
+                    self.on_log(m)
             if (self.ckpt is not None and self.tcfg.ckpt_every
                     and (step + 1) % self.tcfg.ckpt_every == 0):
                 t0 = time.perf_counter()
@@ -295,9 +315,12 @@ class Trainer:
 
     def _latest(self):
         """Newest step at any level (level 1 included: after node loss a
-        step may be there only)."""
+        step may be there only); on a group checkpoint, the step every
+        rank agreed on."""
         if self.ckpt is None:
             return None
+        if isinstance(self.ckpt, GroupMultiLevelCheckpointer):
+            return self.ckpt.latest_step()
         if isinstance(self.ckpt, MultiLevelCheckpointer):
             steps = sorted(set(self.ckpt.local.all_steps())
                            | set(self.ckpt._remote_steps()))

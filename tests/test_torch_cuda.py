@@ -777,3 +777,112 @@ def test_mesh_trainer_on_the_card_matches_unsharded(cuda_mesh, tmp_path,
                                rtol=1e-5)
     # forward and fused backward of each RG-LRU block, per step
     assert launches == 2 * 2 * sum(k == "rglru" for k in cfg.block_pattern)
+
+
+def test_two_level_trainer_on_the_card_resumes_after_node_loss(cuda,
+                                                               tmp_path):
+    """``Trainer(multilevel_remote=)`` on the card, narrow float32: step 2
+    saved at both levels, level 0 lost, a second Trainer resumes step 2
+    from level 1 through the prefetcher and trains 2 more steps; the same
+    on the CPU. Both start from the CPU's init, put at level 1 as step 0
+    (the card's generator draws other numbers). Tolerance: losses rtol
+    1e-4 (card against CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("stablelm-3b").scaled_down(layers=2, width_div=8,
+                                                vocab=512) \
+        .replace(dtype="float32")
+    data = DataConfig(cfg.vocab_size, 65, 4, seed=0)
+    eng = EngineConfig(backend="posix", direct=False)
+    init = {"train": init_train_state(cfg, seed=0, device="cpu"),
+            "data": {"data_step": 0}}
+
+    def run(device, steps):
+        d = tmp_path / device
+        t = Trainer(cfg, TrainerConfig(
+            steps=steps, ckpt_every=2, ckpt_dir=str(d / "l0"),
+            multilevel_remote=str(d / "l1"), log_every=1),
+            data_cfg=data, engine_config=eng, device=device)
+        try:
+            return t.run(), t.ckpt.last_restore_metrics
+        finally:
+            t.close()
+
+    losses = {}
+    for device in ("cuda", "cpu"):
+        with CheckpointManager(str(tmp_path / device / "l1"), config=eng,
+                               device="cpu") as mgr:
+            mgr.save(0, init)
+        first, _ = run(device, 2)
+        shutil.rmtree(tmp_path / device / "l0")
+        resumed, rm = run(device, 4)
+        assert resumed["start_step"] == 2 and rm.prefetch_seconds > 0
+        assert resumed["state"]["params"]["embed"].device.type == device
+        losses[device] = [m["loss"] for m in first["metrics"]
+                          + resumed["metrics"]]
+    assert len(losses["cuda"]) == 4
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def _mesh_cli(device: str, mesh: str, steps: int, every: int, l0, l1
+              ) -> dict:
+    """``torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh
+    <mesh> --remote-dir <l1>`` (the CLI's reduced bf16 xlstm-350m, batch 4
+    x 32 tokens): {step: loss} of rank 0's step lines."""
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "4", "--master-port", str(port), "-m", "repro_torch.launch.train",
+         "--device", device, "--mesh", mesh, "--steps", str(steps),
+         "--ckpt-every", str(every), "--seq-len", "32", "--batch", "4",
+         "--log-every", "1", "--ckpt-dir", str(l0), "--remote-dir", str(l1)],
+        env=dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+                 OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    return {int(ln.split()[1]): float(ln.split()[3])
+            for ln in run.stdout.splitlines() if ln.startswith("step ")}
+
+
+def _mesh_failover(device: str, d) -> dict:
+    """An uninterrupted 2x2 run of 4 steps; a 2x2 run that saves step 2 at
+    both levels; after node loss, 2x2 and 1x4 restarts that resume step 2
+    from level 1 and run steps 2 and 3. Returns each run's losses."""
+    out = {"straight": _mesh_cli(device, "2x2", 4, 0, d / "u0", d / "u1"),
+           "first": _mesh_cli(device, "2x2", 2, 2, d / "l0", d / "l1")}
+    out["levels"] = [sorted(os.listdir(d / lv)) for lv in ("l0", "l1")]
+    for mesh in ("2x2", "1x4"):
+        shutil.rmtree(d / "l0")
+        out[mesh] = _mesh_cli(device, mesh, 4, 5, d / "l0", d / "l1")
+    return out
+
+
+def test_two_level_mesh_cli_on_four_cards(cuda, tmp_path):
+    """The training CLI on a 2x2 mesh of four cards (NCCL, one process per
+    card) with ``--remote-dir``: step 2 committed at both levels; after
+    node loss a 2x2 and an elastic 1x4 restart resume it from level 1
+    through the group prefetcher. Tolerances against the uninterrupted
+    2x2 run: rtol 1e-6 on 2x2 (the same reductions), 1e-3 on 1x4 (bf16
+    under another split). Skips with fewer than four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (one process per card)")
+    got = _mesh_failover("cuda", tmp_path)
+    straight = got["straight"]
+    assert got["levels"] == [["step_00000002"]] * 2
+    assert sorted(got["first"]) == [0, 1]
+    np.testing.assert_allclose([got["first"][s] for s in (0, 1)],
+                               [straight[s] for s in (0, 1)], rtol=1e-6)
+    for mesh, rtol in (("2x2", 1e-6), ("1x4", 1e-3)):
+        assert sorted(got[mesh]) == [2, 3], mesh
+        np.testing.assert_allclose([got[mesh][s] for s in (2, 3)],
+                                   [straight[s] for s in (2, 3)],
+                                   rtol=rtol, err_msg=mesh)

@@ -57,9 +57,10 @@ def test_every_module_imports_with_jax_blocked():
 def test_no_file_of_the_port_imports_the_jax_package():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
              if f.endswith(".py")]
-    files += [os.path.join(ROOT, "chip_smoke.py"),
-              os.path.join(ROOT, "examples", "torch_serve_swap.py"),
-              os.path.join(ROOT, "examples", "torch_elastic_reshard.py")]
+    examples = os.path.join(ROOT, "examples")
+    files += [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(examples, f) for f in sorted(os.listdir(examples))
+        if f.startswith("torch_") and f.endswith(".py")]
     offenders = []
     for path in files:
         with open(path) as f:

@@ -2,8 +2,9 @@
 the unsharded port and the JAX package.
 
 One launch of 4 worker processes (this file, run as a script) checks that
-a 2x2 ``Trainer`` refuses ``multilevel_remote`` and ``ckpt_writers > 1``
-(each rank would commit its windows alone), then trains reduced float32
+a 2x2 ``Trainer`` refuses ``ckpt_writers > 1`` (its ranks are already the
+group checkpoint's writers) and that with ``multilevel_remote`` it commits
+its step at both levels, then trains reduced float32
 recurrentgemma (two groups of its two block kinds), qwen2.5-3b, olmoe and
 xlstm-350m 2 steps each under ``Trainer(mesh=)`` on a 2x2 ("data",
 "model") mesh — olmoe
@@ -101,16 +102,26 @@ def worker(rank: int, world: int, directory: str, port: int) -> None:
         return tensor_to_numpy(t.full_tensor() if isinstance(t, DTensor)
                                else t)
 
-    # a mesh of more than one rank saves through one group checkpoint only
-    for bad in (dict(multilevel_remote=os.path.join(directory, "l1")),
-                dict(ckpt_writers=2)):
-        try:
-            Trainer(train_config(ARCHS[0], get_config), TrainerConfig(
-                ckpt_every=1, ckpt_dir=os.path.join(directory, "refused"),
-                **bad), device="cpu", mesh=mesh)
-            out.setdefault("refused", []).append(f"accepted {bad}")
-        except ValueError as e:
-            out.setdefault("refused", []).append(str(e))
+    # a mesh of more than one rank saves through one group checkpoint: no
+    # writer threads beside its ranks, and a two-level one with a remote dir
+    try:
+        Trainer(train_config(ARCHS[0], get_config), TrainerConfig(
+            ckpt_every=1, ckpt_dir=os.path.join(directory, "refused"),
+            ckpt_writers=2), device="cpu", mesh=mesh)
+        out["refused"] = "accepted ckpt_writers=2"
+    except ValueError as e:
+        out["refused"] = str(e)
+    cfg = train_config(ARCHS[0], get_config)
+    levels = [os.path.join(directory, f"two_level_l{i}") for i in (0, 1)]
+    t = Trainer(cfg, TrainerConfig(
+        steps=1, ckpt_every=1, ckpt_dir=levels[0],
+        multilevel_remote=levels[1]), data_cfg=data_config(cfg, DataConfig),
+        engine_config=eng, device="cpu", mesh=mesh)
+    try:
+        t.run()
+    finally:
+        t.close()
+    out["two_level"] = [sorted(os.listdir(d)) for d in levels]
 
     for arch in ARCHS:
         cfg = train_config(arch, get_config)
@@ -392,9 +403,9 @@ def test_mesh_training_and_cross_package_reshards(tmp_path):
                                        err_msg=f"{arch} {k}")
     # the JAX package's 2x4 checkpoint, restored onto 2x2 by every rank
     for res in ranks:
-        assert len(res["refused"]) == 2 and all(
-            "one group checkpoint" in e for e in res["refused"]), \
-            res["refused"]
+        assert "group checkpoint" in res["refused"] and \
+            "ckpt_writers > 1" in res["refused"], res["refused"]
+        assert res["two_level"] == [["step_00000001"]] * 2
         assert res["ref_restore"] and all(res["ref_restore"].values()), \
             [k for k, ok in res["ref_restore"].items() if not ok]
     # the port's 2x2 checkpoint, restored onto 4x2 and 1x8 by the JAX package
