@@ -150,15 +150,34 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                a CRC of every local block, each equal to its window's. (c)
                ``python -m repro_torch.launch.train --mesh 1x1 --steps 2
                --ckpt-every 0`` on the card.
+     4i. serving on a mesh, after 4h (a), on a 1-rank NCCL group and
+               ``make_host_mesh(1, 1)``: (a) with its reads made cold,
+               phase 4's step 2 swapped in params-only at ``serve_specs``'
+               param layouts through ``restore(shardings=, window_fn=)``
+               (the bytes read must be the param windows' extents, no
+               moment byte), every local block equal to the saved state's
+               digest (the fingerprint kernel); 4e's requests prefilled on
+               DTensors (B5 7 times under ``local_map``) and decoded by
+               ``generate`` through DTensor caches laid out by
+               ``serve_cache_layouts``: decode vs prefill within 0.05, the
+               greedy tokens equal to 4e's unsharded run, the largest
+               difference of the last prompt logits from 4e's reported;
+               (b) full-width, full-depth qwen2.5-3b, initialised on the
+               card as in 4e (c), distributed to the serve layouts and
+               served with the same gates against 4e (c). Swap-in wall,
+               prefill ms, decode ms per step beside 4e's, tokens/s, peak
+               memory. Nothing is written. (A 1x1 mesh splits nothing and
+               NCCL refuses two ranks on one card: the split timeline is
+               held on gloo ranks in the tests and on four cards.)
   5. chaos — the port's seeded chaos campaign with restores on the card, for
                the JAX package's gate seeds (0, 42): zero invariant
                violations, >= 200 faults fired, every required kind class.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
-the per-kernel JSON (launches summed over phases 3, 4, 4e, 4f and 4h (a),
-each counted from zero), and the one before that the nvidia-smi line. The run
-needs one card, the repository's ``src/`` and ``examples/`` beside this
-file, and room for one ~16 GB checkpoint under ``build/``.
+the per-kernel JSON (launches summed over phases 3, 4, 4e, 4f, 4h (a) and
+4i, each counted from zero), and the one before that the nvidia-smi line.
+The run needs one card, the repository's ``src/`` and ``examples/`` beside
+this file, and room for one ~16 GB checkpoint under ``build/``.
 """
 
 from __future__ import annotations
@@ -1933,20 +1952,23 @@ def zoo_estimate() -> int:
         zoo.zoo_config(a), device="meta")["params"])) for a in zoo.ARCHS)
 
 
+def params_only(rec):
+    """``window_fn`` of a params-only swap-in of a Trainer checkpoint: the
+    params and the 0-d leaves whole, every other leaf with rows (the
+    optimizer moments) an empty window, so none of it is read."""
+    shape = tuple(rec.global_shape)
+    whole = tuple((0, s) for s in shape)
+    if rec.key.startswith("train/params/") or not shape:
+        return [(whole, None)]
+    return [(((0, 0),) + whole[1:], None)]
+
+
 def swap_in(root: str, device, phase: str = "4e (a)") -> tuple[dict, dict]:
     """4e (a): a fresh ``CheckpointManager`` restores the newest step of
     ``root`` (a Trainer checkpoint) onto ``device`` and keeps only its
-    params. Every other leaf with rows gets an empty window through
-    ``window_fn``, so the optimizer moments are never read."""
+    params, the moments left unread (``params_only``)."""
     import torch
     from repro_torch.core import CheckpointManager
-
-    def params_only(rec):
-        shape = tuple(rec.global_shape)
-        whole = tuple((0, s) for s in shape)
-        if rec.key.startswith("train/params/") or not shape:
-            return [(whole, None)]
-        return [(((0, 0),) + whole[1:], None)]
 
     device = torch.device(device)
     with CheckpointManager(root, device=device) as mgr:
@@ -1974,14 +1996,19 @@ def swap_in(root: str, device, phase: str = "4e (a)") -> tuple[dict, dict]:
 
 
 def serve_requests(cfg, params, device, *, phase: str = "4e",
-                   gate: bool = True) -> dict:
-    """4e (b)/(c), 4f, 4g: ``SERVE_SHAPE`` seeded requests through one
+                   gate: bool = True, mesh=None, keep=None) -> dict:
+    """4e (b)/(c), 4f, 4g, 4i: ``SERVE_SHAPE`` seeded requests through one
     ``make_prefill_step`` call and ``steps.generate`` (the prompt
     teacher-forced through ``decode_step``, then greedy tokens). The decode
     logits at the last prompt position must agree with the prefill's
     within ``SERVE_TOL`` (reported only, without ``gate``); prefill
     launches the RG-LRU scan once per RG-LRU block, each on the bulk-copy
-    path, and decode never."""
+    path, and decode never. With ``mesh`` (4i) the params are DTensors at
+    the serve layouts, the prompt goes in at the tokens' layout, and the
+    prefill and decode run with the Partitioner's activation layout, the
+    decode cache laid out by ``serve_cache_layouts``. ``keep`` (a dict)
+    gains the generated tokens and the logits at the last prompt position
+    (whole, on the host)."""
     import statistics
 
     import numpy as np
@@ -1994,21 +2021,38 @@ def serve_requests(cfg, params, device, *, phase: str = "4e",
     prompt = torch.as_tensor(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)),
         dtype=torch.int32, device=device)
+    act, layouts, whole = None, None, (lambda t: t)
+    if mesh is not None:
+        from repro_torch.launch.specs import serve_cache_layouts
+        from repro_torch.models import transformer as T
+        from repro_torch.sharding.partition import Layout, Partitioner
+        part = Partitioner(cfg, mesh)
+        act = Layout(mesh, part.activation_spec(B))
+        prompt = part.tokens_sharding(B).distribute(prompt)
+        layouts = serve_cache_layouts(cfg, mesh, T.init_cache(
+            cfg, B, S + new, device="meta"))
+        whole = lambda t: t.full_tensor()       # noqa: E731
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     b5 = _lib.LAUNCHES["rglru_scan"]
     bulk = rk.COPY_LAUNCHES["bulk"]
     sync(device)
     t0 = time.perf_counter()
-    pre = make_prefill_step(cfg)(params, {"tokens": prompt})
+    pre = make_prefill_step(cfg, act_sharding=act)(params,
+                                                   {"tokens": prompt})
     sync(device)
     prefill_s = time.perf_counter() - t0
     prefill_b5 = _lib.LAUNCHES["rglru_scan"] - b5
     prefill_bulk = rk.COPY_LAUNCHES["bulk"] - bulk
     rec: dict = {}
     t0 = time.perf_counter()
-    toks = generate(cfg, params, prompt, steps=new, record=rec)
+    toks = generate(cfg, params, prompt, steps=new, record=rec,
+                    act_sharding=act, cache_layouts=layouts)
     generate_s = time.perf_counter() - t0
+    pre, rec["prompt_logits"] = whole(pre), whole(rec["prompt_logits"])
+    if keep is not None:
+        keep.update(tokens=toks.cpu(), prompt_logits=rec["prompt_logits"]
+                    .cpu())
     decode_b5 = _lib.LAUNCHES["rglru_scan"] - b5 - prefill_b5
     want_b5 = (cfg.block_pattern.count(RGLRU) * cfg.num_groups
                if device.type == "cuda" else 0)
@@ -2112,7 +2156,7 @@ def card_vs_cpu_decode(steps: int = 24) -> dict:
 
 
 def serve_path(root: str, zoo_root: str, tally: WriteTally,
-               params_digests: dict) -> dict:
+               params_digests: dict, kept: dict) -> dict:
     """Phase 4e: the serving path. (a) full-width recurrentgemma-2b's
     params (10 of 26 layers) swapped in from phase 4's checkpoint under
     ``root`` and checked against its digests, (b) served; (c) full-width
@@ -2120,7 +2164,8 @@ def serve_path(root: str, zoo_root: str, tally: WriteTally,
     the card; (e) a narrow decode on the card against the CPU; last, each
     served model's decode under the profiler. The RG-LRU scan (prefill)
     and the fingerprint kernel (the example's delta saves) must be
-    launched."""
+    launched. ``kept`` gains each served model's tokens and last prompt
+    logits (``serve_requests``), which 4i is held to."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
@@ -2134,7 +2179,8 @@ def serve_path(root: str, zoo_root: str, tally: WriteTally,
     log(f"4e (a): {len(params_digests)} swapped-in params equal the saved "
         f"state's digests")
     cfg = train_config()
-    out[cfg.name] = serve_requests(cfg, params, "cuda")
+    out[cfg.name] = serve_requests(cfg, params, "cuda",
+                                   keep=kept.setdefault(cfg.name, {}))
     del params
     torch.cuda.empty_cache()
     cfg = get_config(SERVE_ARCH)
@@ -2145,7 +2191,8 @@ def serve_path(root: str, zoo_root: str, tally: WriteTally,
         f"{cfg.d_model}, vocab {cfg.vocab_size}, initialised on the card in "
         f"{time.perf_counter() - t0:.3f} s "
         f"({state_bytes(flat_leaves(params))} B of params)")
-    out[cfg.name] = serve_requests(cfg, params, "cuda")
+    out[cfg.name] = serve_requests(cfg, params, "cuda",
+                                   keep=kept.setdefault(cfg.name, {}))
     del params
     torch.cuda.empty_cache()
     w0 = io_written()
@@ -2658,6 +2705,158 @@ def mesh_resume(cfg, root: str, saved: dict, run1: dict, run2: dict
                 profile=prof_out)
 
 
+# ------------------------------------------------------------ phase 4i
+def mesh_swap_in(root: str, cfg, mesh) -> tuple[dict, dict]:
+    """4i (a): the newest step of ``root`` (a Trainer checkpoint) swapped
+    in params-only at ``serve_specs``' param layouts (TP only) through
+    ``restore(shardings=, window_fn=)``: each param read at its layout,
+    every other leaf with rows an empty window, so no moment byte is read
+    (``RestoreMetrics.read_bytes`` must equal the bytes of the param
+    extents that meet the rank's windows and of the 0-d leaves)."""
+    from repro_torch.core import CheckpointManager
+    from repro_torch.core.checkpoint import mesh_device, step_dir_name
+    from repro_torch.core.manifest import Manifest
+    from repro_torch.core.pipeline import dtensor_window
+    from repro_torch.core.resharding import dedupe_shards, plan_window
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.partition import Partitioner
+    layouts = {"train/params/" + k: v for k, v in flat_leaves(Partitioner(
+        cfg, mesh).param_shardings(T.init_params(cfg, device="meta")))
+        .items()}
+    device = mesh_device(mesh)
+    with CheckpointManager(root, device=device) as mgr:
+        step = mgr.latest_step()
+        sync(device)
+        t0 = time.perf_counter()
+        restored = mgr.restore(step=step, shardings=layouts,
+                               window_fn=params_only)
+        sync(device)
+        wall = time.perf_counter() - t0
+        rm = mgr.last_restore_metrics
+    manifest = Manifest.load(os.path.join(root, step_dir_name(step)))
+    want = 0
+    for key, rec in manifest.tensors.items():
+        if key in layouts:
+            win = dtensor_window(mesh, layouts[key].placements,
+                                 tuple(rec.global_shape))[0]
+        elif rec.global_shape:
+            continue
+        else:
+            win = ()
+        rec.shards = dedupe_shards(rec)
+        want += sum({(p.shard.path, p.shard.offset): p.shard.nbytes
+                     for p in plan_window(rec, win)}.values())
+    moments = [k for k, t in flat_leaves(restored["train"]["opt"]).items()
+               if t.ndim and t.numel()]
+    if rm.read_bytes != want or moments:
+        fail(f"4i (a) swap-in read {rm.read_bytes} B, its windows' extents "
+             f"hold {want} B; moment leaves read: {moments[:3]}")
+    params = restored["train"]["params"]
+    del restored
+    nbytes = state_bytes(local_leaves(params))
+    out = dict(step=step, wall_s=wall, read_bytes=rm.read_bytes,
+               params_bytes=nbytes, gbps=nbytes / wall / 1e9,
+               read_stall_s=rm.read_stall_seconds,
+               assemble_s=rm.assemble_seconds)
+    log(f"4i (a) swap-in of step {step}'s params onto the 1x1 mesh at the "
+        f"serve layouts ({len(layouts)} DTensors, {nbytes} B; read "
+        f"{rm.read_bytes} B = the param windows' extents, no moment byte) "
+        f"in {wall:.3f} s ({out['gbps']:.3f} GB/s); read stall "
+        f"{rm.read_stall_seconds:.3f} s")
+    return params, out
+
+
+def held_to_unsharded(tag: str, got: dict, want: dict, mesh_out: dict,
+                      plain_out: dict) -> dict:
+    """4i's gates against 4e's unsharded run of the same params: the
+    greedy tokens equal; the logits at the last prompt position reported
+    as their largest difference, absolute and of the largest logit."""
+    if not bool((got["tokens"] == want["tokens"]).all()):
+        n = int((got["tokens"] != want["tokens"]).sum())
+        fail(f"{tag}: {n} of {got['tokens'].numel()} greedy tokens on the "
+             f"mesh differ from 4e's unsharded run")
+    diff = float((got["prompt_logits"] - want["prompt_logits"]).abs().max())
+    rel = diff / float(want["prompt_logits"].abs().max())
+    log(f"{tag}: greedy tokens equal to 4e's ({got['tokens'].numel()}); "
+        f"last prompt logits within {diff:.3e} of 4e's ({rel:.2e} of the "
+        f"largest); decode median {mesh_out['decode_median_ms']:.2f} ms per "
+        f"step on the mesh vs {plain_out['decode_median_ms']:.2f} unsharded"
+        f", prefill {mesh_out['prefill_s'] * 1e3:.2f} vs "
+        f"{plain_out['prefill_s'] * 1e3:.2f} ms, "
+        f"{mesh_out['tokens_per_s']:.1f} vs {plain_out['tokens_per_s']:.1f}"
+        f" tokens/s")
+    return dict(logits_max_abs_diff=diff, logits_rel_diff=rel)
+
+
+def serve_mesh(root: str, saved: dict, kept: dict, serving: dict) -> dict:
+    """Phase 4i, serving on a mesh: a 1-rank NCCL group and
+    ``make_host_mesh(1, 1)``. (a) phase 4's checkpoint swapped in
+    params-only at the serve layouts (``mesh_swap_in``), every local block
+    equal to the saved state's digest (the fingerprint kernel on the
+    card), then ``SERVE_SHAPE`` requests prefilled on DTensors (B5 under
+    ``local_map``) and decoded by ``generate`` through DTensor caches laid
+    out by ``serve_cache_layouts``; (b) full-width, full-depth qwen2.5-3b
+    initialised on the card as in 4e (c), distributed to the serve
+    layouts and served the same way. Gates of each: decode vs prefill
+    within ``SERVE_TOL`` and the greedy tokens equal to 4e's unsharded
+    run of the same params (``kept``); B5 7 times in (a)'s prefill."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L, transformer as T
+    from repro_torch.sharding.partition import Partitioner, shard_tree
+    torch.cuda.empty_cache()
+    out: dict = {"swap_in_reads": cold_reads(root)}
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        _lib.reset_launches()
+        cfg = train_config()
+        params, out["swap_in"] = mesh_swap_in(root, cfg, mesh)
+        got = digests(local_leaves(params))
+        want = param_digests(saved)
+        bad = [k for k in want if k not in got
+               or not torch.equal(got[k], want[k])]
+        if got.keys() != want.keys() or bad:
+            fail(f"4i (a): {len(bad)} swapped-in local blocks differ from "
+                 f"the saved state, e.g. {bad[:3]}")
+        log(f"4i (a): {len(want)} local blocks equal the saved state's "
+            f"digests")
+        mine: dict = {}
+        out[cfg.name] = serve_requests(cfg, params, "cuda", phase="4i (a)",
+                                       mesh=mesh, keep=mine)
+        out[cfg.name].update(held_to_unsharded(
+            "4i (a)", mine, kept[cfg.name], out[cfg.name],
+            serving[cfg.name]))
+        del params
+        torch.cuda.empty_cache()
+        cfg = get_config(SERVE_ARCH)
+        params = T.cast_params(T.init_params(cfg, seed=0, device="cuda"),
+                               L.dtype_of(cfg))
+        params = shard_tree(params, Partitioner(cfg, mesh).param_shardings(
+            params))
+        mine = {}
+        out[cfg.name] = serve_requests(cfg, params, "cuda", phase="4i (b)",
+                                       mesh=mesh, keep=mine)
+        out[cfg.name].update(held_to_unsharded(
+            "4i (b)", mine, kept[cfg.name], out[cfg.name],
+            serving[cfg.name]))
+        del params
+        out["launches"] = {k: _lib.LAUNCHES[k] for k in SERVING_KERNELS}
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"kernel launches over phase 4i: {out['launches']}")
+    for name, count in out["launches"].items():
+        if count <= 0:
+            fail(f"kernel {name} was never launched in phase 4i")
+    return out
+
+
 MESH_RESTORE = (2, 2)       # 4h (b): (data, model) of the CPU ranks' mesh
 
 
@@ -3006,15 +3205,20 @@ def main(argv=None) -> int:
             kernels=TRAINING_KERNELS, profile=True)
         log(f"training path: {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        kept: dict = {}
         serving = serve_path(train_root, os.path.join(HERE, "build",
                                                       "smoke_zoo"),
-                             tally, param_digests(saved))
+                             tally, param_digests(saved), kept)
         log(f"4e: {time.perf_counter() - t0:.1f} s")
         # phase 4h (a): the same checkpoint resumed onto a 1x1 CUDA mesh
         t0 = time.perf_counter()
         mesh = mesh_resume(train_config(), train_root, saved,
                            training["run1"], training["run2"])
         log(f"4h (a): {time.perf_counter() - t0:.1f} s")
+        # phase 4i: the same checkpoint served on a 1x1 CUDA mesh
+        t0 = time.perf_counter()
+        serve_on_mesh = serve_mesh(train_root, saved, kept, serving)
+        log(f"4i: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(train_root, ignore_errors=True)
     del saved
@@ -3051,7 +3255,9 @@ def main(argv=None) -> int:
                 + training["launches"].get(name, 0)
                 + serving["launches"].get(name, 0)
                 + xlstm["launches"].get(name, 0)
-                + mesh["launches"].get(name, 0) for name in KERNELS}
+                + mesh["launches"].get(name, 0)
+                + serve_on_mesh["launches"].get(name, 0)
+                for name in KERNELS}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]
@@ -3067,7 +3273,8 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, kernels=results, main_path=main_path,
                            training=training, serving=serving, xlstm=xlstm,
-                           moe=moe, mesh=mesh, chaos=chaos_run), f,
+                           moe=moe, mesh=mesh, serve_mesh=serve_on_mesh,
+                           chaos=chaos_run), f,
                       indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -253,6 +253,7 @@ class RestoreMetrics:
     """
     step: int
     total_bytes: int = 0
+    read_bytes: int = 0             # bytes of the extents this restore read
     read_seconds: float = 0.0       # wall span of the read stage
     read_stall_seconds: float = 0.0  # consumer blocked waiting on extents
     decode_seconds: float = 0.0     # int8 → float dequantization
@@ -802,7 +803,12 @@ class CheckpointManager:
         ``shardings`` restores straight into DTensors).
 
         ``window_fn(record) -> [(window, device_or_None), ...]`` overrides
-        the per-tensor wanted windows.
+        the per-tensor wanted windows of every key that ``shardings`` does
+        not name: with both, a server swaps in a training checkpoint's
+        params at its own layouts (``shardings``, each rank reading only its
+        windows) while ``window_fn`` gives the rest (the optimizer moments)
+        empty windows, so none of their bytes are read. The reference's
+        ``window_fn`` overrides every key (``repro/core/checkpoint.py:732``).
 
         When ``step`` is None, a step whose manifest is truncated/corrupt
         (``ManifestError``) is skipped and the next-older step restored; an
@@ -868,17 +874,18 @@ class CheckpointManager:
         # key -> (mesh, placements) of every leaf restored as a DTensor
         layouts = {k: (t.device_mesh, t.placements)
                    for k, t in template_by_key.items() if is_dtensor(t)}
-        layouts.update({k: _layout_of(v)
-                        for k, v in (shardings or {}).items()})
+        named = {k: _layout_of(v) for k, v in (shardings or {}).items()}
+        layouts.update(named)
+        # the leaves read at a layout, and restored as DTensors of it
+        laid = named if window_fn is not None else layouts
         for stub in iter_stubs(lean_tree):
             rec = manifest.tensors[stub.key]
-            if window_fn is not None:
+            if window_fn is not None and stub.key not in named:
                 shard_list = [(w, torch.device(d) if d is not None
                                else self.device) for w, d in window_fn(rec)]
             else:
                 shard_list = self._target_windows(
-                    rec, template_by_key.get(stub.key),
-                    layouts.get(stub.key))
+                    rec, template_by_key.get(stub.key), laid.get(stub.key))
             wanted[stub.key] = shard_list
 
         qset = set(manifest.extra.get("quantized", ()))
@@ -896,12 +903,11 @@ class CheckpointManager:
             # partial (resharded) one stays staged and is discarded
             prefetch.finish(ckpt, os.path.join(self.directory,
                                                step_dir_name(step)))
-        if window_fn is None:
-            for key, layout in layouts.items():
-                if key in out_tensors:
-                    out_tensors[key] = _as_dtensor(
-                        out_tensors[key], *layout,
-                        manifest.tensors[key].global_shape)
+        for key, layout in laid.items():
+            if key in out_tensors:
+                out_tensors[key] = _as_dtensor(
+                    out_tensors[key], *layout,
+                    manifest.tensors[key].global_shape)
         metrics.end_to_end_seconds = trace.clock() - t_start
         self.last_restore_metrics = metrics
         state = reinsert_tensors(lean_tree, out_tensors)
@@ -953,9 +959,9 @@ class CheckpointManager:
                             crcs[f"{t.key}@{r.path}@{r.offset}"] = r.crc32
                     if delta_mod.is_chunked(sh) and sh.crc32 is not None:
                         crcs[f"{t.key}@{sh.path}@{sh.offset}"] = sh.crc32
-        on_reqs = None
-        if prefetch is not None:   # pull exactly the planned extents
-            def on_reqs(reqs):
+        def on_reqs(reqs):
+            metrics.read_bytes = sum(r.nbytes for r in reqs)
+            if prefetch is not None:   # pull exactly the planned extents
                 t0 = trace.clock()
                 prefetch.fetch_extents(ckpt, reqs)
                 metrics.prefetch_seconds = trace.clock() - t0
@@ -1003,6 +1009,7 @@ class CheckpointManager:
             metrics.prefetch_seconds = trace.clock() - tp
             t0 = trace.clock()
         raw = self.engine.read(ckpt, list(extent_reqs.values()))
+        metrics.read_bytes = sum(r.nbytes for r in extent_reqs.values())
         metrics.read_seconds = trace.clock() - t0
         metrics.read_stall_seconds = metrics.read_seconds
         metrics.peak_staged_bytes = sum(

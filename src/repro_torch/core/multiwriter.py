@@ -35,9 +35,12 @@ Replicated 0-d tensors become host scalars, which ride in the lean object
 exactly as the reference's do.
 
 Failure semantics: a rank failing before a barrier aborts the group — peers
-unblock with ``MultiWriterAborted`` instead of hanging — and the step is
-never published (the shared ``.tmp-*`` dir is owned by this process, so a
-later manager's GC leaves it alone until the owner dies).
+unblock with ``MultiWriterAborted`` instead of hanging (a rank whose own
+error is a ``MultiWriterAborted`` does not abort again: the reference does,
+and can so break a peer still waking from a barrier it passed, losing
+rank 0's error) — and the step is never published (the shared ``.tmp-*``
+dir is owned by this process, so a later manager's GC leaves it alone until
+the owner dies).
 
 ``DistGroup`` is the same shim over ``torch.distributed`` (one process per
 rank, e.g. the owners of a DTensor's shards): ``process_group_manager``
@@ -488,6 +491,12 @@ class MultiWriterCheckpointer:
                     return self.managers[r].save(
                         step, shards[r], rank=r, num_ranks=n,
                         on_staged=staged[r].set)
+            except MultiWriterAborted:
+                # the group knows already (a broken barrier, or rank 0's
+                # failed commit seen after the last barrier): aborting
+                # again would break a peer still waking from that barrier,
+                # and rank 0's own error would be lost
+                raise
             except BaseException:
                 self.group.abort()   # unblock peers stuck on a barrier
                 raise

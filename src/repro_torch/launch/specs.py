@@ -100,20 +100,28 @@ def prefill_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
     return state_specs["params"], batch_specs, shardings["params"]
 
 
-def serve_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
-    """(param_specs, cache_specs, token_specs, pos_specs, param_shardings,
-    cache_shardings) for decode cells.
+def serve_cache_layouts(cfg: ModelConfig, mesh, cache):
+    """Tree of ``Layout``s of a decode cache (``T.init_cache``'s tree, its
+    leaves real tensors, DTensors or ``meta``: only shapes are read) on
+    ``mesh``: the reference's decode-cell rule. The stacked group axis
+    stays whole, the batch splits over the DP axes where it divides, and
+    the first dim among the rest that is a head count (KV or query heads)
+    or ``lru_dim`` and divides over ``model`` splits over ``model``. Where
+    the KV heads cannot split, K/V (G, B, W, KV, hd) split their slot dim
+    W over ``model`` instead — the cache TIMELINE, flash-decoding style,
+    the partial softmax reductions becoming collectives
+    (``models.layers`` merges them by a log-sum-exp combine).
 
-    The KV/recurrent cache is sized for shape.seq_len context; the step
-    decodes ONE new token."""
+    This is the rule the live server uses (``init_cache(layouts=)``), so
+    the dry run's decode cells report the bytes a server holds. It is not
+    ``Partitioner.cache_specs``, the reference's Partitioner rule, which
+    never splits the timeline and raises as the reference has it (ROADMAP
+    §C); the reference's decode cells compile with this one
+    (``repro/launch/specs.py:91-124``)."""
     part = Partitioner(cfg, mesh)
-    params = init_train_state(cfg, device="meta")["params"]
-    param_shardings = part.param_shardings(params)
-    param_specs = _with_layouts(params, param_shardings)
-
-    B = shape.global_batch
-    cache = T.init_cache(cfg, B, shape.seq_len, device="meta")
-    bdim, = part.batch_spec(B)
+    batch = next(int(t.shape[1]) for _, t in tree_leaves_with_path(cache)
+                 if t.ndim >= 2)
+    bdim, = part.batch_spec(batch)
     kv_shardable = (cfg.num_kv_heads % part.model == 0
                     and cfg.num_kv_heads >= part.model)
 
@@ -146,7 +154,24 @@ def serve_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
                 entries.append(None)
         return part.layout(tuple(entries[:len(shp)]))
 
-    cache_shardings = tree_map_with_path(cache_layout, cache)
+    return tree_map_with_path(cache_layout, cache)
+
+
+def serve_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """(param_specs, cache_specs, token_specs, pos_specs, param_shardings,
+    cache_shardings) for decode cells.
+
+    The KV/recurrent cache is sized for shape.seq_len context; the step
+    decodes ONE new token. Params are TP-only (no FSDP); the cache is laid
+    out by ``serve_cache_layouts``, as the live server's."""
+    part = Partitioner(cfg, mesh)
+    params = init_train_state(cfg, device="meta")["params"]
+    param_shardings = part.param_shardings(params)
+    param_specs = _with_layouts(params, param_shardings)
+
+    B = shape.global_batch
+    cache = T.init_cache(cfg, B, shape.seq_len, device="meta")
+    cache_shardings = serve_cache_layouts(cfg, mesh, cache)
     cache_specs = _with_layouts(cache, cache_shardings)
     tok = _spec((B, 1), torch.int32, part.tokens_sharding(B))
     pos = _spec((B, 1), torch.int32, part.tokens_sharding(B))

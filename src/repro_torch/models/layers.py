@@ -14,7 +14,13 @@ follow the reference's.
 
 Decode caches are updated IN PLACE: a block given a cache writes the new
 key/value (or recurrent state) into it, advances its ``pos``, and returns
-the same dict — the reference returns new arrays instead.
+the same dict — the reference returns new arrays instead. Under a mesh the
+cache leaves are DTensors laid out by ``launch.specs.serve_cache_layouts``
+and every write lands in a rank's own blocks (``_kv_step`` at the cache's
+placements, ``sharding.dtensor.write_``); where the K/V timeline is split
+over a mesh dim, each rank attends over its own slots and the partial
+softmaxes are merged by a log-sum-exp combine over that dim
+(``_combined_scores``).
 
 Under a mesh the params and activations are DTensors and the projections,
 norms and MLPs follow DTensor's sharding propagation (PyTorch 2.11 and
@@ -34,11 +40,13 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..kernels.rglru import rglru_scan
-from ..sharding.dtensor import (is_dtensor, keep_dims, like, on_local,
-                                pointwise, replicate, summed_over)
+from ..sharding.dtensor import (is_dtensor, keep_dims, like, mapped,
+                                on_local, pointwise, replicate, summed_over,
+                                write_)
 from .config import ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -101,7 +109,7 @@ def rope(x, positions, theta: float):
     d = x.shape[-1]
     half = d // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = (1.0 / (theta ** exps.double())).float()
+    freqs = like((1.0 / (theta ** exps.double())).float(), positions)
     angles = positions[..., :, None].float() * freqs        # (..., S, half)
     cos = like(torch.cos(angles.double()).float()[..., None, :], x)
     sin = like(torch.sin(angles.double()).float()[..., None, :], x)
@@ -139,24 +147,48 @@ def _softcap(logits, cap: float):
     return logits
 
 
-def attention_scores(q, k, v, mask, cfg: ModelConfig):
-    """q: (B,Sq,H,D), k/v: (B,Skv,KV,D), mask (B|1,Sq,Skv) -> (B,Sq,H,D)
-    in v's dtype. q and k meet in their promoted dtype, as jnp.einsum's do
-    (gemma decode: a float32 query against the bf16 cache)."""
+def _masked_logits(q, k, mask, cfg: ModelConfig):
+    """q: (B,Sq,H,D), k: (B,Skv,KV,D), mask (B|1,Sq,Skv) -> float32 logits
+    (B,KV,H/KV,Sq,Skv), softcapped, -1e30 where masked. q and k meet in
+    their promoted dtype, as jnp.einsum's do (gemma decode: a float32 query
+    against the bf16 cache)."""
     B, Sq, H, D = q.shape
     KV = k.shape[2]
-    G = H // KV
     ct = torch.promote_types(q.dtype, k.dtype)
-    q = q.reshape(B, Sq, KV, G, D).to(ct)
+    q = q.reshape(B, Sq, KV, H // KV, D).to(ct)
     logits = torch.einsum("bqkgd,bskd->bkgqs", q, k.to(ct)).float()
     logits = logits / math.sqrt(D)
     logits = _softcap(logits, cfg.attn_softcap)
-    logits = torch.where(mask[:, None, None, :, :], logits,
-                         torch.tensor(-1e30, dtype=logits.dtype,
-                                      device=logits.device))
-    w = torch.softmax(logits, dim=-1)
+    return torch.where(mask[:, None, None, :, :], logits,
+                       torch.tensor(-1e30, dtype=logits.dtype,
+                                    device=logits.device))
+
+
+def attention_scores(q, k, v, mask, cfg: ModelConfig):
+    """q: (B,Sq,H,D), k/v: (B,Skv,KV,D), mask (B|1,Sq,Skv) -> (B,Sq,H,D)
+    in v's dtype."""
+    w = torch.softmax(_masked_logits(q, k, mask, cfg), dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)
-    return out.reshape(B, Sq, H, D)
+    return out.reshape(q.shape)
+
+
+def _combined_scores(q, k, v, mask, cfg: ModelConfig, group):
+    """``attention_scores`` over a timeline split across the ranks of
+    ``group``, each holding its slots of k/v and their mask: the local
+    logits' max is all-reduced (MAX), then the sums of the rescaled
+    ``exp`` and of the rescaled outputs (SUM, one call), and the output is
+    their quotient — the log-sum-exp combine of flash decoding. Masked
+    slots (-1e30) weigh exp(-1e30 - max) = 0 on every rank, as in the
+    softmax. Float32 throughout, cast to v's dtype at the end."""
+    logits = _masked_logits(q, k, mask, cfg)             # (B,KV,G,Sq,Sl)
+    top = logits.amax(dim=-1, keepdim=True)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(logits - top)
+    num = torch.einsum("bkgqs,bskd->bkgqd", e, v.float())
+    parts = torch.cat([num, e.sum(dim=-1, keepdim=True)], dim=-1)
+    dist.all_reduce(parts, group=group)
+    out = parts[..., :-1] / parts[..., -1:]              # (B,KV,G,Sq,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(q.shape).to(v.dtype)
 
 
 def causal_mask(Sq: int, Skv: int, q_offset: int, window: int = 0,
@@ -189,6 +221,20 @@ def chunked_attention(q, k, v, cfg: ModelConfig, window: int,
     return torch.cat(outs, dim=1)[:, :S]
 
 
+def split_heads(t, heads: int):
+    """(B, S, heads·hd) -> (B, S, heads, hd). Under a mesh, a split of the
+    last dim that does not fall on whole heads (qwen2.5's 2 heads over 4
+    ranks) is made whole first: DTensor cannot view it as heads."""
+    if is_dtensor(t):
+        ways = 1
+        for i, p in enumerate(t.placements):
+            if p.is_shard() and p.dim % t.ndim == t.ndim - 1:
+                ways *= t.device_mesh.size(i)
+        if heads % ways:
+            t = t.redistribute(t.device_mesh, keep_dims(t, (0, 1)))
+    return t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
+
+
 def _heads_local(fn, q, *rest):
     """``fn(q, *rest)`` for work independent per (batch row, head): q
     (B,S,H,D) and each of ``rest`` (B,S',H',...) with its heads on dim 2.
@@ -218,9 +264,9 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, local: bool,
         q = q + params["bq"].to(h.dtype)
         k = k + params["bk"].to(h.dtype)
         v = v + params["bv"].to(h.dtype)
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = split_heads(q, cfg.num_heads)
+    k = split_heads(k, cfg.num_kv_heads)
+    v = split_heads(v, cfg.num_kv_heads)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
@@ -232,29 +278,86 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, local: bool,
                                                              window),
                            q, k, v)
     else:
-        # decode: write into the ring (window > 0) or linear buffer, attend
-        # over it. Slot positions are analytic: ring slot s holds position
-        # cur - ((cur - s) mod W), linear slot s holds position s.
-        ck, cv, pos = cache["k"], cache["v"], cache["pos"]
-        W = ck.shape[1]
-        slot = pos % W if window > 0 else torch.clamp(pos, max=W - 1)
-        slot = slot.reshape(1).long()
-        ck.index_copy_(1, slot, k.to(ck.dtype))
-        cv.index_copy_(1, slot, v.to(cv.dtype))
-        slots = torch.arange(W, dtype=torch.int32, device=x.device)[None, :]
-        cur = positions[:, :1]                                 # (B, 1)
-        if window > 0:
-            kpos = cur - torch.remainder(cur - slots, W)       # floor mod
-        else:
-            kpos = slots.expand(cur.shape[0], W)
-        valid = (kpos >= 0) & (kpos <= cur)
-        if window > 0:
-            valid &= kpos > cur - window
-        out = attention_scores(q, ck, cv, valid[:, None, :], cfg)
-        pos.add_(1)
+        out = _attend_cached(q, k, v, positions, cache, cfg, window)
     # a bf16 cache under a float32 residual stream (gemma) promotes here
     out = out.reshape(B, S, cfg.q_dim).to(x.dtype) @ params["wo"].to(x.dtype)
     return x + out, cache
+
+
+def _kv_step(q, k, v, positions, ck, cv, pos, cfg: ModelConfig, window: int,
+             timeline=None):
+    """Decode on plain tensors: write the new k/v (B,1,KV,D) into the ring
+    (window > 0) or linear buffer ck/cv (B,W,KV,D) in place, advance
+    ``pos``, attend over the buffer -> (B,1,H,D). Slot positions are
+    analytic: ring slot s holds position cur - ((cur - s) mod W), linear
+    slot s holds position s.
+
+    ``timeline`` = (process group, this rank's index r, ranks n): ck/cv
+    hold slots [r·Wl, (r+1)·Wl) of a W = n·Wl timeline. The slot written
+    comes from the replicated ``pos``; a rank that does not own it writes
+    its own slot's values back (no branch on a device value). Each rank
+    masks its slots by their absolute positions and the ranks' partial
+    results are combined (``_combined_scores``)."""
+    group, r, n = timeline or (None, 0, 1)
+    Wl = ck.shape[1]
+    W, lo = Wl * n, r * Wl
+    slot = pos % W if window > 0 else torch.clamp(pos, max=W - 1)
+    if timeline is not None:
+        own = (slot >= lo) & (slot < lo + Wl)
+        slot = (slot - lo).clamp(0, Wl - 1)
+    slot = slot.reshape(1).long()
+    if timeline is not None:
+        k = torch.where(own, k.to(ck.dtype), ck.index_select(1, slot))
+        v = torch.where(own, v.to(cv.dtype), cv.index_select(1, slot))
+    ck.index_copy_(1, slot, k.to(ck.dtype))
+    cv.index_copy_(1, slot, v.to(cv.dtype))
+    slots = lo + torch.arange(Wl, dtype=torch.int32, device=q.device)[None]
+    cur = positions[:, :1]                                     # (B, 1)
+    if window > 0:
+        kpos = cur - torch.remainder(cur - slots, W)           # floor mod
+    else:
+        kpos = slots.expand(cur.shape[0], Wl)
+    valid = (kpos >= 0) & (kpos <= cur)
+    if window > 0:
+        valid &= kpos > cur - window
+    if timeline is None:
+        out = attention_scores(q, ck, cv, valid[:, None, :], cfg)
+    else:
+        out = _combined_scores(q, ck, cv, valid[:, None, :], cfg, group)
+    pos.add_(1)
+    return out
+
+
+def _attend_cached(q, k, v, positions, cache, cfg: ModelConfig,
+                   window: int):
+    """``_kv_step`` on the block's cache. Under a mesh it runs on local
+    blocks with the cache at its OWN placements (``on_local`` would
+    otherwise write into a redistributed copy): q, k, v split over batch
+    and heads as the cache splits its batch and KV heads, else whole;
+    where the cache splits its slot dim W over a mesh dim, the timeline
+    split over that dim's group."""
+    ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+    if not is_dtensor(ck):
+        return _kv_step(q, k, v, positions, ck, cv, pos, cfg, window)
+    own = tuple(ck.placements)
+    if any(p.is_shard() and p.dim == 3 for p in own):
+        raise NotImplementedError(f"a decode cache split over head_dim "
+                                  f"{own}")
+    split = [i for i, p in enumerate(own) if p.is_shard() and p.dim == 1]
+    timeline = None
+    if split:
+        if len(split) > 1:
+            raise NotImplementedError(f"a K/V timeline split over two mesh "
+                                      f"dims {own}")
+        mesh, i = ck.device_mesh, split[0]
+        timeline = (mesh.get_group(i), mesh.get_coordinate()[i],
+                    mesh.size(i))
+    heads = mapped(own, {0: 0, 2: 2}, q.shape)
+    return on_local(
+        lambda *ts: _kv_step(*ts, cfg, window, timeline),
+        (q, k, v, like(positions, q), ck, cv, pos),
+        (heads, heads, heads, mapped(own, {0: 0}), own, own,
+         tuple(pos.placements)), heads)
 
 
 def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int,
@@ -437,15 +540,32 @@ def rglru_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
     a, bx = _rglru_coeffs(params, h)                  # (B,S,r) float32
     if cache is None:
         hh = rglru_scan(a, bx)
-    else:
-        hh = a * cache["h"] + bx                      # (B,1,r) float32
-        cache["h"].copy_(hh)
+    else:                                             # (B,1,r) float32
+        # under a mesh at a's layout (the cache may split its size-1 dim)
+        lay = a.placements if is_dtensor(a) else None
+        hh = _state_step(lambda a, bx, h: (a * h + bx,) * 2, (a, bx),
+                         (lay, lay), (cache["h"],), lay, lay)
     gate = F.silu(h @ params["wgate"].to(h.dtype))
     y = (hh.to(x.dtype) * gate) @ params["wout"].to(x.dtype)
     x = x + y
     h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
     x = x + mlp_apply(params["mlp"], h2, cfg)
     return x, cache
+
+
+def _state_step(fn, args, layouts, states, state_layout, out_layout):
+    """Decode's recurrent step: ``fn(*args, *states) -> (out, *new
+    states)``, each new state written back into its cache leaf in place
+    (``write_``: at the leaf's own layout). Under a mesh ``fn`` runs on
+    local blocks: ``args`` at ``layouts``, the states at ``state_layout``
+    (the layout the step needs, which may gather a state that its cache
+    leaf splits), ``out`` at ``out_layout``."""
+    n = len(states)
+    res = on_local(fn, (*args, *states), (*layouts, *[state_layout] * n),
+                   (out_layout, *[state_layout] * n))
+    for dst, val in zip(states, res[1:]):
+        write_(dst, val)
+    return res[0]
 
 
 def rglru_cache_init(cfg: ModelConfig, batch: int, *, device="cpu"):
@@ -486,13 +606,12 @@ def _mlstm_qkv(params, h, cfg: ModelConfig):
     log input gate and log-sigmoid forget gate (B,S,H) float32. The
     reference divides k by a numpy float64 scalar, which JAX does not treat
     as weak: k is promoted to float32 even for a bf16 model, and so here."""
-    B, S, up = h.shape
     H = cfg.num_heads
-    hd = up // H
-    q = (h @ params["wq"].to(h.dtype)).reshape(B, S, H, hd)
-    k = (h @ params["wk"].to(h.dtype)).reshape(B, S, H, hd).float() / \
+    hd = h.shape[-1] // H
+    q = split_heads(h @ params["wq"].to(h.dtype), H)
+    k = split_heads(h @ params["wk"].to(h.dtype), H).float() / \
         math.sqrt(hd)
-    v = (h @ params["wv"].to(h.dtype)).reshape(B, S, H, hd)
+    v = split_heads(h @ params["wv"].to(h.dtype), H)
     logi = (h @ params["w_igate"].to(h.dtype)).float() + params["b_igate"]
     # log_sigmoid's backward has no DTensor strategy
     logf = pointwise(F.logsigmoid,
@@ -588,24 +707,34 @@ def mlstm_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
             out = _heads_local(lambda *ts: _mlstm_chunked(*ts, chunk),
                                q, k, v, logi, logf)
     else:
-        Cst, Nst, Mst = cache["C"], cache["N"], cache["M"]
-        lf, li = logf[:, 0], logi[:, 0]                       # (B,H)
-        m_new = torch.maximum(lf + Mst, li)
-        alpha = torch.exp(lf + Mst - m_new)[..., None]
-        beta = torch.exp(li - m_new)[..., None]
-        k1, v1, q1 = k[:, 0], v[:, 0], q[:, 0]                # (B,H,D)
-        Cst.copy_(Cst * alpha[..., None] +
-                  beta[..., None] * k1[..., :, None] * v1[..., None, :])
-        Nst.copy_(Nst * alpha + beta * k1)
-        Mst.copy_(m_new)
-        qf = q1.float()
-        num = torch.einsum("bhd,bhde->bhe", qf, Cst)
-        den = torch.maximum(torch.einsum("bhd,bhd->bh", qf, Nst).abs(),
-                            torch.exp(-m_new))
-        out = (num / (den[..., None] + 1e-6))[:, None]        # (B,1,H,D)
+        # per (batch row, head): under a mesh split as the cache splits them
+        states = (cache["C"], cache["N"], cache["M"])
+        lay = keep_dims(states[0], (0, 1))
+        qlay = mapped(lay, {0: 0, 1: 2}, q.shape)
+        out = _state_step(_mlstm_step, (q, k, v, logi, logf),
+                          (qlay,) * 5, states, lay, qlay)     # (B,1,H,D)
     out = rmsnorm(params["out_norm"], out, cfg.norm_eps)
     out = out.reshape(B, S, H * D).to(x.dtype) * u2
     return x + out @ params["w_down"].to(x.dtype), cache
+
+
+def _mlstm_step(q, k, v, logi, logf, C, N, M):
+    """One recurrent step: q, k, v (B,1,H,D), logi, logf (B,1,H) from the
+    state C (B,H,D,D), N (B,H,D), M (B,H) -> (out (B,1,H,D) float32, C,
+    N, M new)."""
+    lf, li = logf[:, 0], logi[:, 0]                           # (B,H)
+    m_new = torch.maximum(lf + M, li)
+    alpha = torch.exp(lf + M - m_new)[..., None]
+    beta = torch.exp(li - m_new)[..., None]
+    k1, v1, q1 = k[:, 0], v[:, 0], q[:, 0]                    # (B,H,D)
+    C = C * alpha[..., None] + \
+        beta[..., None] * k1[..., :, None] * v1[..., None, :]
+    N = N * alpha + beta * k1
+    qf = q1.float()
+    num = torch.einsum("bhd,bhde->bhe", qf, C)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", qf, N).abs(),
+                        torch.exp(-m_new))
+    return (num / (den[..., None] + 1e-6))[:, None], C, N, m_new
 
 
 def mlstm_cache_init(cfg: ModelConfig, batch: int, *, device="cpu"):
@@ -699,14 +828,21 @@ def slstm_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
         out = on_local(_slstm_scan, (pre_x, r), (rows, replicate(r)), rows,
                        rows and (rows, summed_over(rows)))
     else:
-        one = torch.ones((), dtype=torch.float32, device=x.device)
-        carry = tuple(cache[k] for k in ("c", "n", "m", "h"))
-        new, h = _slstm_step(r, carry, pre_x[:, 0], one)
-        for old, val in zip(carry, new):
-            old.copy_(val)
-        out = h[:, None, :]
+        # under a mesh on each rank's batch rows, every channel (a state
+        # split over d is gathered for h @ r) and the recurrent weights whole
+        rows = keep_dims(pre_x, (0,))
+        out = _state_step(_slstm_decode, (r, pre_x), (replicate(r), rows),
+                          tuple(cache[k] for k in ("c", "n", "m", "h")),
+                          rows, rows)
     up = act_fn("gelu")(out.to(x.dtype) @ params["w_up"].to(x.dtype))
     return x + up @ params["w_down"].to(x.dtype), cache
+
+
+def _slstm_decode(r, pre_x, *carry):
+    """One step from the carry (c, n, m, h) -> (h (B,1,d), *new carry)."""
+    one = torch.ones((), dtype=torch.float32, device=pre_x.device)
+    new, h = _slstm_step(r, carry, pre_x[:, 0], one)
+    return (h[:, None, :], *new)
 
 
 def slstm_cache_init(cfg: ModelConfig, batch: int, *, device="cpu"):

@@ -15,7 +15,9 @@ Decode caches have the reference's tree too: ``b{j}_{kind}/{k,v,pos}``,
 ``b{j}_{kind}/{c,n,m,h}`` (sLSTM), every leaf stacked over
 ``cfg.num_groups``.
 ``decode_step`` writes each group's new entries into those stacked buffers
-in place and returns the same tree.
+in place and returns the same tree. Under a mesh (``init_cache(layouts=)``)
+the leaves are DTensors, each rank holding only its blocks, and the writes
+land in them (``layers``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..sharding.dtensor import (constrain, keep_dims, on_local, replicate,
-                                summed_over)
+                                summed_over, zeros)
 from . import layers as L
 from .config import (ATTN, ATTN_LOCAL, ATTENTION_KINDS, MLSTM, RGLRU, SLSTM,
                      ModelConfig)
@@ -109,9 +111,15 @@ CACHE_INIT = {
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda"):
+               device="cuda", layouts=None):
     """Stacked (per-group) decode caches, laid out as the reference's: on
-    ``device`` (the card by default)."""
+    ``device`` (the card by default). ``layouts`` (a tree of layouts of
+    this cache, e.g. ``launch.specs.serve_cache_layouts``) makes every leaf
+    a DTensor of its layout, each rank allocating only its own block."""
+    if layouts is not None:
+        shapes = init_cache(cfg, batch, max_len, device="meta")
+        return _tree_map(lambda t, lay: zeros(t.shape, t.dtype, device, lay),
+                         shapes, layouts)
     groups = [{f"b{j}_{kind}": CACHE_INIT[kind](cfg, batch, max_len, device)
                for j, kind in enumerate(cfg.block_pattern)}
               for _ in range(cfg.num_groups)]
@@ -226,13 +234,18 @@ def forward(params, cfg: ModelConfig, tokens, frontend_embeds=None,
     return _unembed(params, cfg, x), aux
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
+                act_sharding=None):
     """One-token decode: tokens (B,1), pos (B,1) int32 absolute positions.
 
     ``cache`` is the stacked per-group cache from ``init_cache``; it is
-    updated in place. Returns (logits (B,1,V) float32, cache)."""
-    x = _embed(params, cfg, tokens)
+    updated in place. Returns (logits (B,1,V) float32, cache). Under a mesh
+    (DTensor params, cache, tokens; ``pos`` a DTensor or the same plain
+    tensor on every rank) ``act_sharding`` pins the residual stream's
+    layout at the embed and after every block, as ``forward`` does, and
+    the logits' (the vocab whole)."""
+    x = constrain(_embed(params, cfg, tokens), act_sharding)
     for gparams, gcache in zip(_unstack(params["blocks"], cfg.num_groups),
                                _unstack(cache, cfg.num_groups)):
-        x, _ = _group(x, pos, gparams, cfg, gcache)
-    return _unembed(params, cfg, x), cache
+        x, _ = _group(x, pos, gparams, cfg, gcache, act_sharding)
+    return constrain(_unembed(params, cfg, x), act_sharding), cache

@@ -7,7 +7,9 @@ inside a block (rope's angles, a mask, a zero carry — the same on every
 rank) join DTensor arithmetic as a replicated DTensor; ``on_local`` runs a
 function on the local blocks of its DTensor arguments under ``local_map``,
 for work that DTensor's sharding propagation cannot split by itself (a
-loop over time, a gather/scatter routing, a CUDA kernel).
+loop over time, a gather/scatter routing, a CUDA kernel). ``zeros`` makes a
+DTensor from each rank's block alone, and ``write_`` writes into a
+DTensor's own blocks in place (a decode cache).
 """
 
 from __future__ import annotations
@@ -61,6 +63,22 @@ def keep_dims(t, dims: tuple[int, ...]) -> tuple | None:
                  for p in t.placements)
 
 
+def mapped(placements: tuple | None, dims: dict, shape=None
+           ) -> tuple | None:
+    """``placements`` of one tensor carried to another, of ``shape``, whose
+    dim ``dims[d]`` is this one's dim ``d``: each split of a dim in
+    ``dims`` moves to its counterpart, every other split (and pending sum)
+    becomes a whole copy — as does a split of a counterpart of size 1
+    (only a mesh dim of size 1 splits one; DTensor cannot view such a dim
+    away)."""
+    if placements is None:
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+                 and (shape is None or shape[dims[p.dim]] > 1)
+                 else Replicate() for p in placements)
+
+
 def summed_over(placements: tuple) -> tuple:
     """The grad layout of a whole copy used against blocks split as
     ``placements``: a pending sum over each mesh dim that splits them."""
@@ -101,3 +119,35 @@ def pointwise(fn, t):
     they lie, any pending sum made whole first."""
     layout = keep_dims(t, tuple(range(t.ndim)))
     return on_local(fn, (t,), (layout,), layout)
+
+
+def zeros(shape, dtype, device, layout=None):
+    """``torch.zeros(shape)``, or with ``layout`` (anything with ``mesh``
+    and ``placements``; even splits) a DTensor of it for which each rank
+    allocates only its own block."""
+    if layout is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    mesh, placements = layout.mesh, tuple(layout.placements)
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            if local[p.dim] % mesh.size(i):
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
+                                 f"split evenly over mesh dim {i}")
+            local[p.dim] //= mesh.size(i)
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device),
+                              mesh, placements, run_check=False)
+
+
+def write_(dst, src) -> None:
+    """``dst.copy_(src)``. For a DTensor ``dst`` the copy runs on its local
+    blocks at its OWN placements (``src`` redistributed to them first), so
+    it lands in ``dst``'s storage: passed at any other placements,
+    ``on_local`` would write into a redistributed temporary."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return
+    own = tuple(dst.placements)
+    on_local(lambda d, s: d.copy_(s), (dst, like(src, dst)), (own, own),
+             own)

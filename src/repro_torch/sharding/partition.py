@@ -283,7 +283,15 @@ class Partitioner:
         return (*self.batch_spec(batch), None, None)
 
     def cache_specs(self, cache):
-        """Decode caches: batch over DP; KV-head dim over model if divisible."""
+        """Decode caches: batch over DP; KV-head dim over model if divisible.
+
+        The reference Partitioner's rule, kept and pinned against it; the
+        reference's own ``cache_shardings`` raises as it stands (ROADMAP
+        §C). The live server does NOT use it: ``init_cache(layouts=)`` takes
+        ``launch.specs.serve_cache_layouts``, the rule the reference's
+        decode cells compile with, which also splits ``lru_dim`` and, where
+        the KV heads cannot split, the cache timeline — so the dry run's
+        decode bytes are the server's."""
         def one(_path, leaf):
             shape = tuple(leaf.shape)
             entries: list = [None]  # stacked group axis

@@ -15,9 +15,11 @@ tree of layouts, the moments' under ZeRO-1) is where each grad is
 redistributed to before the update (ZeRO-2; without it, to its param's
 layout). The loss comes back whole on every rank.
 ``make_prefill_step`` and ``make_serve_step`` run under
-``torch.inference_mode()`` (the prefill on a mesh under ``no_grad``): no
-remat, and the RG-LRU scan runs forward only.
-``generate`` is the serving loop over ``make_serve_step``.
+``torch.inference_mode()`` (on a mesh under ``no_grad``: a DTensor view
+made in inference mode fails, inference tensors having no version
+counter): no remat, and the RG-LRU scan runs forward only.
+``generate`` is the serving loop over ``make_serve_step``; on a mesh its
+cache is laid out by the caller's ``cache_layouts``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from ..models import layers as L
 from ..models import transformer as T
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, apply_updates, init_state
-from ..sharding.dtensor import constrain, is_dtensor
+from ..sharding.dtensor import constrain, is_dtensor, keep_dims, on_local
 
 CE_CHUNK = 512  # sequence chunk for the unembed + cross-entropy loop
 
@@ -102,7 +104,7 @@ def _unflat(items) -> dict:
 
 
 def _whole(t):
-    """A 0-d DTensor's value as a plain tensor on every rank."""
+    """A DTensor's value as a plain tensor on every rank."""
     return t.full_tensor() if is_dtensor(t) else t
 
 
@@ -189,33 +191,54 @@ def make_prefill_step(cfg: ModelConfig, act_sharding=None):
     return prefill
 
 
-def make_serve_step(cfg: ModelConfig):
-    """One new token against an existing decode cache (updated in place)."""
+def make_serve_step(cfg: ModelConfig, act_sharding=None):
+    """One new token against an existing decode cache (updated in place).
+    ``act_sharding``: the residual stream's layout under a mesh, where the
+    step runs under ``no_grad``."""
     def serve_step(params, cache, tokens, pos):
-        with torch.inference_mode():
-            return T.decode_step(params, cfg, cache, tokens, pos)
+        with torch.no_grad() if act_sharding is not None \
+                else torch.inference_mode():
+            return T.decode_step(params, cfg, cache, tokens, pos,
+                                 act_sharding=act_sharding)
     return serve_step
 
 
-def generate(cfg: ModelConfig, params, prompt, steps=16, record=None):
+def _greedy(logits):
+    """(B,1,V) logits -> (B,1) int32 argmax, per batch row (under a mesh on
+    each rank's rows, the vocab whole)."""
+    rows = keep_dims(logits, (0,))
+    return on_local(lambda t: t.argmax(dim=-1).to(torch.int32), (logits,),
+                    (rows,), rows)
+
+
+def generate(cfg: ModelConfig, params, prompt, steps=16, record=None,
+             act_sharding=None, cache_layouts=None):
     """Greedy decode ``steps`` tokens from a (B, S) int32 prompt batch: the
     prompt is teacher-forced through the decode cache, then each token is
     the argmax of the last logits. ``record`` (a dict), when given, gains
     ``prompt_logits`` (the logits at the last prompt position) and
-    ``step_s`` (the wall of every decode step, each synchronised)."""
+    ``step_s`` (the wall of every decode step, each synchronised).
+
+    Under a mesh the params and ``prompt`` are DTensors (the prompt at the
+    tokens' layout, which every step's token and position keep),
+    ``act_sharding`` is the residual stream's layout and ``cache_layouts``
+    the layouts of ``init_cache(cfg, B, S + steps)`` (e.g.
+    ``launch.specs.serve_cache_layouts``); the tokens come back whole on
+    every rank."""
     B, S = prompt.shape
-    cache = T.init_cache(cfg, B, max_len=S + steps, device=prompt.device)
-    serve = make_serve_step(cfg)
+    cache = T.init_cache(cfg, B, max_len=S + steps, device=prompt.device,
+                         layouts=cache_layouts)
+    serve = make_serve_step(cfg, act_sharding)
     tok = prompt[:, :1]
     out = []
     for t in range(S + steps - 1):
         t0 = time.perf_counter()
-        pos = torch.full((B, 1), t, dtype=torch.int32, device=prompt.device)
+        pos = torch.full_like(tok, t)
         logits, cache = serve(params, cache, tok, pos)
         if t + 1 < S:
             tok = prompt[:, t + 1:t + 2]        # teacher-force the prompt
         else:
-            tok = logits.argmax(dim=-1).to(torch.int32)
+            tok = _greedy(logits)
             out.append(tok)
         if record is not None:
             if t == S - 1:
@@ -223,4 +246,4 @@ def generate(cfg: ModelConfig, params, prompt, steps=16, record=None):
             if prompt.device.type == "cuda":
                 torch.cuda.synchronize(prompt.device)
             record.setdefault("step_s", []).append(time.perf_counter() - t0)
-    return torch.cat(out, dim=1)
+    return _whole(torch.cat(out, dim=1))

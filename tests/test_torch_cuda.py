@@ -886,3 +886,133 @@ def test_two_level_mesh_cli_on_four_cards(cuda, tmp_path):
         np.testing.assert_allclose([got[mesh][s] for s in (2, 3)],
                                    [straight[s] for s in (2, 3)],
                                    rtol=rtol, err_msg=mesh)
+
+
+
+def mesh_decode(mesh, arch: str) -> tuple[bool, float]:
+    """``make_serve_step`` on ``mesh`` (its ranks on the card) for the
+    reduced float32 ``arch`` of ``tests/test_torch_serve_mesh.py``: 12
+    steps from DTensor caches laid out by ``serve_cache_layouts``, every
+    step's logits and cache leaves against the unsharded decode on this
+    rank's card. Returns (all within rtol 1e-5 and atol 1e-5 of each
+    tensor's largest value, the largest difference over the largest
+    value)."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_serve_mesh import (B, MESH_TOL, STEPS, decode_tokens,
+                                       serve_config)
+    from repro_torch.configs import get_config
+    from repro_torch.core.serialization import (path_str,
+                                                tree_leaves_with_path,
+                                                tree_map_with_path)
+    from repro_torch.launch.specs import serve_cache_layouts
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.partition import Layout, Partitioner, shard_tree
+    from repro_torch.train.steps import make_serve_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def leaves(tree):
+        return {path_str(p): t for p, t in tree_leaves_with_path(tree)}
+
+    cfg = serve_config(arch, get_config)
+    part = Partitioner(cfg, mesh)
+    params = tree_map_with_path(lambda _p, t: t.cuda(), T.init_params(
+        cfg, seed=0, device="cpu"))
+    dparams = shard_tree(params, part.param_shardings(params))
+    tok = part.tokens_sharding(B)
+    cache = T.init_cache(cfg, B, STEPS, layouts=serve_cache_layouts(
+        cfg, mesh, T.init_cache(cfg, B, STEPS, device="meta")))
+    plain = T.init_cache(cfg, B, STEPS)
+    serve = make_serve_step(cfg, Layout(mesh, part.activation_spec(B)))
+    toks = torch.as_tensor(decode_tokens(cfg)).cuda()
+    ok, worst = True, 0.0
+    for t in range(STEPS):
+        pos = torch.full((B, 1), t, dtype=torch.int32, device="cuda")
+        got, _ = serve(dparams, cache, tok.distribute(toks[:, t:t + 1]),
+                       tok.distribute(pos))
+        want, _ = make_serve_step(cfg)(params, plain, toks[:, t:t + 1], pos)
+        pairs = [(got.full_tensor(), want)] + [
+            (v.full_tensor(), leaves(plain)[k])
+            for k, v in leaves(cache).items()]
+        for g, w in pairs:
+            g, w = g.float(), w.float()
+            top = float(w.abs().max())
+            ok &= bool(torch.allclose(g, w, rtol=MESH_TOL["rtol"],
+                                      atol=MESH_TOL["atol"] * top))
+            worst = max(worst, float((g - w).abs().max()) / max(top, 1e-30))
+    return ok, worst
+
+
+MESH_ARCHS = ("qwen2.5-3b", "gemma2-9b", "recurrentgemma-2b", "xlstm-350m",
+              "olmoe-1b-7b")
+
+
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_mesh_decode_on_the_card_matches_unsharded(cuda_mesh, arch):
+    """``mesh_decode`` on a 1x1 CUDA mesh (the rule splits size-1 dims over
+    the model axis of size 1, as in the smoke's phase 4i)."""
+    ok, worst = mesh_decode(cuda_mesh, arch)
+    assert ok, worst
+
+
+MESH_DECODE = r"""
+import json, os, sys
+from datetime import timedelta
+import torch.distributed as dist
+rank, out, port = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sys.path.insert(0, os.path.dirname(os.path.abspath(sys.argv[4])))
+from test_torch_cuda import MESH_ARCHS, mesh_decode
+from repro_torch.launch.mesh import make_host_mesh
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=4,
+                        timeout=timedelta(seconds=300))
+res = {}
+for dm, mm in ((2, 2), (1, 4)):
+    mesh = make_host_mesh(dm, mm)
+    for arch in MESH_ARCHS:
+        ok, err = mesh_decode(mesh, arch)
+        res[f"{dm}x{mm}/{arch}"] = dict(ok=ok, err=err)
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+print("MESH-DECODE-OK")
+"""
+
+
+def test_mesh_decode_on_four_cards(cuda, tmp_path):
+    """``mesh_decode`` on 2x2 and 1x4 meshes of four cards (NCCL, one
+    process per card; qwen2.5-3b's K/V timeline split over the four cards
+    on 1x4). Skips with fewer than four cards."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (one process per card)")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_DECODE, str(r), str(tmp_path),
+         str(port), __file__], env=dict(
+             os.environ, OMP_NUM_THREADS="1",
+             PYTHONPATH=os.path.join(root, "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0] * 4, \
+        [log[-3000:] for log in logs]
+    for r in range(4):
+        with open(tmp_path / f"rank{r}.json") as f:
+            res = json.load(f)
+        assert len(res) == 10 and all(v["ok"] for v in res.values()), \
+            (r, res)
+    print("four-card mesh decode, largest difference over the largest "
+          "value:", {k: v["err"] for k, v in res.items()})

@@ -442,6 +442,29 @@ def test_multiwriter_delta_chain_across_packages(tmp_path):
 def test_commit_crash_window_keeps_previous(tmp_ckpt_dir, monkeypatch):
     """Crash between displacing the old step dir and renaming the new one
     in must NOT lose the previous checkpoint: restart recovers it."""
+    _crash_window(tmp_ckpt_dir, monkeypatch)
+
+
+def test_commit_crash_is_reported_when_rank_1_reaches_the_barrier_last(
+        tmp_ckpt_dir, monkeypatch):
+    """The same crash with rank 1 reaching every barrier 50 ms after rank
+    0, so it is rank 1 that releases the barrier after rank 0's failed
+    publish: its ``MultiWriterAborted`` must not abort the group while
+    rank 0 is still waking from that barrier, or rank 0's own error is
+    replaced by a broken barrier (a thread a barrier released still
+    raises ``BrokenBarrierError`` if a peer aborts before it wakes)."""
+    wait = InProcessGroup.barrier
+
+    def late_rank_1(self):
+        if threading.current_thread().name == "mw-rank-51":
+            time.sleep(0.05)
+        return wait(self)
+
+    monkeypatch.setattr(InProcessGroup, "barrier", late_rank_1)
+    _crash_window(tmp_ckpt_dir, monkeypatch)
+
+
+def _crash_window(tmp_ckpt_dir, monkeypatch):
     (_t1, s1), (_t2, s2) = _state(1), _state(2)
     with _mw(tmp_ckpt_dir, 2) as mw:
         mw.save(5, s1)
