@@ -169,6 +169,24 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                memory. Nothing is written. (A 1x1 mesh splits nothing and
                NCCL refuses two ranks on one card: the split timeline is
                held on gloo ranks in the tests and on four cards.)
+     4j. expert-parallel MoE on a 1-rank NCCL group and
+               ``make_host_mesh(1, 1)`` (as 4h and 4i; nothing written): (a)
+               4g's bf16 params distributed to the serve layouts (each
+               expert stack split over ``model``) and 4g's requests at
+               capacity 8.0 served through ``moe_apply``'s mesh path: the
+               greedy tokens equal to 4g's, decode vs prefill within 0.05;
+               the last prompt logits' largest difference from 4g's,
+               prefill ms, decode ms per step beside 4g's and peak memory
+               reported. (b) olmoe-1b-7b at full width cut to 8 of its 16
+               layers (its train state reckoned on ``meta`` and printed
+               beside full depth's 69.19 GB): two Trainer steps unsharded,
+               then two from the same seed on the mesh, each loss within
+               1e-4 relative; step walls and peak memory. The MoE runs
+               torch ops only: no kernel of the five launches in 4j. A 1x1
+               mesh splits nothing: it proves the path and its dispatch
+               cost on the card; the split itself is held on gloo ranks
+               (tests/test_torch_moe_mesh.py) and four cards
+               (``test_moe_on_four_cards``).
   5. chaos — the port's seeded chaos campaign with restores on the card, for
                the JAX package's gate seeds (0, 42): zero invariant
                violations, >= 200 faults fired, every required kind class.
@@ -235,6 +253,8 @@ TORN_ALLOWANCE = 256 << 20         # 4f (i): the torn save's writes before
 MOE_ARCH = "olmoe-1b-7b"           # phase 4g: served, never checkpointed
 MOE_GATED_CAPACITY = 8.0           # no drops: prefill and decode route
 #                                    alike (tests/test_models.py)
+MOE_TRAIN_LAYERS = 8               # 4j (b): 35.6 of full depth's 69.2 GB of
+#                                    params and moments, grads beside them
 CHECKPOINT_LAYERS = 1
 PROBE_BYTES = 512 << 20
 WRITE_LIMIT = 44 << 30             # the run's own budget under the 45 GiB
@@ -2767,18 +2787,20 @@ def mesh_swap_in(root: str, cfg, mesh) -> tuple[dict, dict]:
 
 
 def held_to_unsharded(tag: str, got: dict, want: dict, mesh_out: dict,
-                      plain_out: dict) -> dict:
-    """4i's gates against 4e's unsharded run of the same params: the
-    greedy tokens equal; the logits at the last prompt position reported
-    as their largest difference, absolute and of the largest logit."""
+                      plain_out: dict, against: str = "4e") -> dict:
+    """4i's and 4j's gates against the unsharded run of the same params
+    (phase ``against``): the greedy tokens equal; the logits at the last
+    prompt position reported as their largest difference, absolute and of
+    the largest logit."""
     if not bool((got["tokens"] == want["tokens"]).all()):
         n = int((got["tokens"] != want["tokens"]).sum())
         fail(f"{tag}: {n} of {got['tokens'].numel()} greedy tokens on the "
-             f"mesh differ from 4e's unsharded run")
+             f"mesh differ from {against}'s unsharded run")
     diff = float((got["prompt_logits"] - want["prompt_logits"]).abs().max())
     rel = diff / float(want["prompt_logits"].abs().max())
-    log(f"{tag}: greedy tokens equal to 4e's ({got['tokens'].numel()}); "
-        f"last prompt logits within {diff:.3e} of 4e's ({rel:.2e} of the "
+    log(f"{tag}: greedy tokens equal to {against}'s "
+        f"({got['tokens'].numel()}); last prompt logits within {diff:.3e} "
+        f"of {against}'s ({rel:.2e} of the "
         f"largest); decode median {mesh_out['decode_median_ms']:.2f} ms per "
         f"step on the mesh vs {plain_out['decode_median_ms']:.2f} unsharded"
         f", prefill {mesh_out['prefill_s'] * 1e3:.2f} vs "
@@ -3013,14 +3035,16 @@ def mesh_cli() -> dict:
     return dict(seconds=seconds, summary=summary[0], loss=loss[0])
 
 
-def moe_serve() -> dict:
+def moe_serve() -> tuple[dict, dict]:
     """Phase 4g: full-width olmoe-1b-7b (16 layers, 64 experts, top-8,
     6.92 B params), initialised on the card, cast to bf16 and never
     checkpointed, served with ``SERVE_SHAPE`` requests twice: at capacity
     factor ``MOE_GATED_CAPACITY`` under the ``SERVE_TOL`` yardstick (no
     drops, so prefill and decode route alike), then at the config's own
     factor with the ratio reported only (the prefill's 512 tokens get 80
-    slots per expert, decode's 8 tokens 8, so they may route apart)."""
+    slots per expert, decode's 8 tokens 8, so they may route apart). Then
+    phase 4j (a) serves the same params on a 1x1 mesh
+    (``moe_mesh_serve``). Returns 4g's and 4j (a)'s measurements."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L, transformer as T
@@ -3035,14 +3059,131 @@ def moe_serve() -> dict:
         f"experts, top-{cfg.experts_per_token}, d_model {cfg.d_model}; "
         f"initialised on the card in {out['init_s']:.3f} s ({nbytes} B of "
         f"params)")
+    gated = cfg.replace(moe_capacity_factor=MOE_GATED_CAPACITY)
+    kept: dict = {}
     out["capacity_gated"] = serve_requests(
-        cfg.replace(moe_capacity_factor=MOE_GATED_CAPACITY), params, "cuda",
-        phase=f"4g (capacity {MOE_GATED_CAPACITY})")
+        gated, params, "cuda", phase=f"4g (capacity {MOE_GATED_CAPACITY})",
+        keep=kept)
     out["capacity_config"] = serve_requests(
         cfg, params, "cuda", phase=f"4g (capacity "
         f"{cfg.moe_capacity_factor})", gate=False)
+    t0 = time.perf_counter()
+    on_mesh = moe_mesh_serve(gated, params, kept, out["capacity_gated"])
+    log(f"4j (a): {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
+    return out, on_mesh
+
+
+def moe_mesh_serve(cfg, params, kept: dict, plain: dict,
+                   device: str = "cuda") -> dict:
+    """Phase 4j (a), expert-parallel MoE served on a 1-rank NCCL group and
+    ``make_host_mesh(1, 1)``: 4g's bf16 params distributed to the serve
+    layouts (the Partitioner's, as ``serve_specs``'; every expert stack
+    split over ``model``: on one rank, no copy), 4g's requests at capacity
+    ``MOE_GATED_CAPACITY`` prefilled and decoded through ``moe_apply``'s
+    mesh path. Gates: decode vs prefill within ``SERVE_TOL`` and the greedy
+    tokens equal to 4g's; the last prompt logits' largest difference from
+    4g's, prefill ms, decode ms per step beside 4g's and peak memory are
+    reported. (``device="cpu"`` rehearses it on a gloo group.)"""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.partition import Partitioner, shard_tree
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device=device)
+        dparams = shard_tree(params, Partitioner(cfg, mesh).param_shardings(
+            params))
+        wg = dparams["blocks"]["b0_attn"]["moe"]["wg"]
+        log(f"4j (a) {cfg.name} expert stacks at {tuple(wg.placements)}, "
+            f"local {tuple(wg.to_local().shape)}")
+        mine: dict = {}
+        out = serve_requests(cfg, dparams, device, phase="4j (a)",
+                             mesh=mesh, keep=mine)
+        out.update(held_to_unsharded("4j (a)", mine, kept, out, plain,
+                                     against="4g"))
+        del dparams
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def moe_mesh_train(cfg=None, device: str = "cuda") -> dict:
+    """Phase 4j (b), expert-parallel MoE trained: olmoe-1b-7b at full
+    width (64 experts of 2048 x 1024, top-8) cut to ``MOE_TRAIN_LAYERS``
+    layers so that its train state (reckoned on ``meta`` and printed
+    beside full depth's) fits the card beside its grads and activations.
+    Two ``Trainer`` steps unsharded, then two from the same seed with
+    ``mesh=make_host_mesh(1, 1)`` on a 1-rank NCCL group (nothing is
+    written); each mesh loss within 1e-4 relative of the unsharded one.
+    Step walls and peak memory of both runs are reported. (A narrow
+    ``cfg`` and ``device="cpu"`` rehearse it on a gloo group.)"""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    full = get_config(MOE_ARCH)
+    cfg = cfg or full.replace(num_layers=MOE_TRAIN_LAYERS)
+    cuda = device == "cuda"
+    total = state_bytes(flat_leaves(init_train_state(cfg, device="meta")))
+    whole = state_bytes(flat_leaves(init_train_state(full, device="meta")))
+    out: dict = {"layers": cfg.num_layers, "state_bytes": total,
+                 "full_depth_state_bytes": whole}
+    log(f"4j (b) {cfg.name} training: {cfg.num_layers} of "
+        f"{full.num_layers} layers, every width kept; train state {total} B "
+        f"(full depth {whole} B); batch {TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]} "
+        f"tokens")
+    tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+
+    def two_steps(tag: str, mesh=None) -> dict:
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, TrainerConfig(steps=2, ckpt_every=0,
+                                             log_every=1, seed=0),
+                          device=device, mesh=mesh)
+        try:
+            res = trainer.run()
+        finally:
+            trainer.close()
+        finite_losses(res, [0, 1])
+        run = dict(steps=log_steps(tag, res, tokens),
+                   peak_device_bytes=torch.cuda.max_memory_allocated()
+                   if cuda else None)
+        del res
+        return run
+
+    out["unsharded"] = two_steps("4j (b) unsharded")
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        out["mesh"] = two_steps("4j (b) 1x1 mesh",
+                                make_host_mesh(1, 1, device=device))
+    finally:
+        dist.destroy_process_group()
+    if cuda:
+        torch.cuda.empty_cache()
+    diffs = []
+    for m, u in zip(out["mesh"]["steps"], out["unsharded"]["steps"]):
+        rel = abs(m["loss"] - u["loss"]) / abs(u["loss"])
+        diffs.append(rel)
+        if rel > 1e-4:
+            fail(f"4j (b) step {m['step']} loss {m['loss']} on the mesh is "
+                 f"{rel:.2e} from the unsharded {u['loss']} (limit 1e-4 "
+                 f"relative)")
+    out["loss_rel_diff"] = diffs
+    log(f"4j (b) losses within {max(diffs):.2e} relative of the unsharded "
+        f"run's (limit 1e-4); step walls on the mesh "
+        + " / ".join(f"{m['seconds']:.3f}" for m in out["mesh"]["steps"])
+        + " s vs unsharded "
+        + " / ".join(f"{m['seconds']:.3f}" for m in out["unsharded"]["steps"])
+        + f" s; peak device memory {out['mesh']['peak_device_bytes']} B vs "
+        f"{out['unsharded']['peak_device_bytes']} B")
     return out
 
 
@@ -3226,10 +3367,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     xlstm = xlstm_path(os.path.join(HERE, "build", "smoke_xlstm"), tally)
     log(f"4f: {time.perf_counter() - t0:.1f} s")
-    # phase 4g: full olmoe-1b-7b served
+    # phase 4g: full olmoe-1b-7b served; 4j: the same served on a 1x1
+    # mesh, then trained there at a cut depth
     t0 = time.perf_counter()
-    moe = moe_serve()
-    log(f"4g: {time.perf_counter() - t0:.1f} s")
+    moe, moe_mesh = moe_serve()
+    log(f"4g and 4j (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_mesh["train"] = moe_mesh_train()
+    log(f"4j (b): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     mesh["cli"] = mesh_cli()
     log(f"4h (c): {time.perf_counter() - t0:.1f} s")
@@ -3273,7 +3418,8 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(dict(card=smi, kernels=results, main_path=main_path,
                            training=training, serving=serving, xlstm=xlstm,
-                           moe=moe, mesh=mesh, serve_mesh=serve_on_mesh,
+                           moe=moe, moe_mesh=moe_mesh, mesh=mesh,
+                           serve_mesh=serve_on_mesh,
                            chaos=chaos_run), f,
                       indent=1)
     print(smi)

@@ -692,10 +692,11 @@ def manifest_store_paths(m: Manifest):
 
 
 def _scan_store_refs(root: str) -> tuple[dict[str, int], bool]:
-    """One refcount pass; also reports whether a listed manifest vanished
-    mid-scan (a concurrent publish renaming ``tmp`` → step dir between our
-    ``listdir`` and the read — the refs exist but under a name this pass
-    never visited, so the caller must rescan)."""
+    """One refcount pass; also reports whether a listed manifest or
+    ``.tmp-`` dir vanished mid-scan (a concurrent publish renaming ``tmp``
+    → step dir between our ``listdir`` and the read, or the liveness check
+    — the refs exist but under a name this pass never visited, so the
+    caller must rescan)."""
     from .checkpoint import _STEP_RE, tmp_in_flight  # runtime: avoid cycle
     counts: dict[str, int] = {}
     vanished = False
@@ -706,11 +707,18 @@ def _scan_store_refs(root: str) -> tuple[dict[str, int], bool]:
     for name in names:
         full = os.path.join(root, name)
         if not os.path.isdir(full):
+            # a listed .tmp- dir gone by now was committed (or reaped): its
+            # refs may live on under a step name this pass never listed
+            vanished |= ".tmp-" in name and not os.path.exists(full)
             continue
         mpaths = []
         if _STEP_RE.match(name):
             mpaths = [os.path.join(full, MANIFEST_NAME)]
-        elif ".tmp-" in name and tmp_in_flight(full):
+        elif ".tmp-" in name:
+            if not tmp_in_flight(full):
+                # not live — or renamed away while its owner was read
+                vanished |= not os.path.exists(full)
+                continue
             try:
                 inner = os.listdir(full)
             except OSError:

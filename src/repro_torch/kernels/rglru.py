@@ -6,7 +6,8 @@ Counterpart of ``repro/kernels/rglru.py`` (and of the associative scan in
 ``linear_scan_grad`` forms the whole backward (dL/da and dL/db) in one pass:
 on CUDA tensors each launches the hand-written kernel of ``csrc/rglru.cu``
 once; on CPU tensors they run the plain PyTorch versions of ``ref.py`` — the
-same arithmetic, bit for bit. ``rglru_scan`` is the differentiable op the
+same arithmetic, bit for bit; ``meta`` tensors (the dry run) get outputs of
+the right shape and no scan. ``rglru_scan`` is the differentiable op the
 model calls: its backward is one ``linear_scan_grad``; on DTensors it scans
 each rank's local block under ``local_map``.
 
@@ -85,6 +86,8 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, *,
     _check(a, b)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return linear_scan_plain(a, b, reverse=reverse)
+    if a.device.type == "meta":         # shapes only: no data to scan
+        return torch.empty_like(b)
     return _launch("reverse" if reverse else "forward", a, b)
 
 
@@ -101,6 +104,8 @@ def linear_scan_grad(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
     _check(a, h, dh)
     if all(t.device.type == "cpu" for t in (a, h, dh)):
         return linear_scan_grad_plain(a, h, dh)
+    if a.device.type == "meta":         # shapes only: no data to scan
+        return torch.empty_like(dh), torch.empty_like(dh)
     da = torch.empty_like(dh)
     g = _launch("grad", a, dh, h, da)
     return da, g

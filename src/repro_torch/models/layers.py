@@ -28,9 +28,10 @@ norms and MLPs follow DTensor's sharding propagation (PyTorch 2.11 and
 (``sharding.dtensor.on_local``), where a release lacks a strategy or the
 work is independent per batch row, head or channel: the attention and
 mLSTM cores per (batch row, head) (``_heads_local``: GQA's reshape and the
-einsums' flattening of a split head), the sLSTM loop over time (per batch
-row, the recurrent weights whole), the MoE routing and dispatch (every
-token and expert whole: the capacity counts over the whole batch),
+einsums' flattening of a split head; ``merge_heads`` in training), the
+sLSTM loop over time (per batch row, the recurrent weights whole), the MoE
+routing, dispatch and experts (every token whole, since the capacity
+counts over the whole batch; each rank's own experts, ``moe_apply``),
 ``log_sigmoid`` (``pointwise``) and the RG-LRU scan (``kernels.rglru``).
 Rope's angles join as a replicated DTensor (``like``).
 """
@@ -235,6 +236,20 @@ def split_heads(t, heads: int):
     return t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
 
 
+def merge_heads(t):
+    """(B, S, heads, hd) -> (B, S, heads·hd), the inverse of
+    ``split_heads``. Under a mesh, where a backward will run, the merge
+    runs on local blocks, so its backward views the grad into heads at the
+    heads' own layout: DTensor may hand the merged grad back split over
+    more ranks than there are heads (4 over a model axis of 16), which it
+    cannot view as heads."""
+    if not is_dtensor(t) or not torch.is_grad_enabled():
+        return t.reshape(*t.shape[:-2], -1)
+    lay = keep_dims(t, (0, 1, 2))
+    return on_local(lambda u: u.reshape(*u.shape[:-2], -1), (t,), (lay,),
+                    mapped(lay, {0: 0, 1: 1, 2: 2}))
+
+
 def _heads_local(fn, q, *rest):
     """``fn(q, *rest)`` for work independent per (batch row, head): q
     (B,S,H,D) and each of ``rest`` (B,S',H',...) with its heads on dim 2.
@@ -280,7 +295,7 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, local: bool,
     else:
         out = _attend_cached(q, k, v, positions, cache, cfg, window)
     # a bf16 cache under a float32 residual stream (gemma) promotes here
-    out = out.reshape(B, S, cfg.q_dim).to(x.dtype) @ params["wo"].to(x.dtype)
+    out = merge_heads(out).to(x.dtype) @ params["wo"].to(x.dtype)
     return x + out, cache
 
 
@@ -430,21 +445,52 @@ def moe_apply(params, x, cfg: ModelConfig,
     """x: (B,S,d) -> ((B,S,d), aux loss): GShard-style dropping MoE. Tokens
     are dispatched into an (E, C, d) buffer, the experts run as batched
     GEMMs over it, and each token sums its k gated expert outputs. The
-    Switch load-balance loss is E · Σ_e f_e · p_e."""
+    Switch load-balance loss is E · Σ_e f_e · p_e.
+
+    Under a mesh the experts are parallel (EP): the expert stacks stay
+    split over the mesh dims that split their expert dim (``model`` by the
+    Partitioner's rule; a split of another dim, FSDP's over ``data``, is
+    gathered), and each rank runs its own experts' (E/n, C, d) slice of the
+    dispatch buffer on its local blocks. The routing — capacity and slots —
+    counts over the whole batch on every rank, so the tokens and the
+    router are whole there. Each rank's combine holds only its experts'
+    outputs: a pending sum over the splitting dims, reduced to ``x``'s
+    layout. Where nothing splits the experts (E does not divide the model
+    axis) every rank runs them all."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
-    names = ("router", "wg", "wu", "wd")
-    if is_dtensor(x):
-        # under a mesh: on every rank, over all tokens (the capacity and the
-        # slots count over the whole batch) with every expert
-        ts = (x, *(params[k] for k in names))
-        rep = replicate(x)
-        return on_local(
-            lambda x, *ws: moe_apply(dict(zip(names, ws)), x, cfg,
-                                     capacity_factor),
-            ts, [rep] * len(ts), (rep, rep))
+    if not is_dtensor(x):
+        return _moe(params, x, cfg, capacity_factor)
+    mesh = x.device_mesh
+    rep = replicate(x)
+    stacks = keep_dims(params["wg"], (0,))       # the expert dim's splits
+    first = 0
+    for i, p in enumerate(stacks):
+        if p.is_shard():
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+    first *= cfg.num_experts // math.prod(
+        mesh.size(i) for i, p in enumerate(stacks) if p.is_shard())
+    partial = summed_over(stacks)
+    y, aux = on_local(
+        lambda x, r, *ws: _moe(dict(zip(("router", "wg", "wu", "wd"),
+                                        (r, *ws))),
+                               x, cfg, capacity_factor, first),
+        (x, params["router"], params["wg"], params["wu"], params["wd"]),
+        (rep, rep, stacks, stacks, stacks), (partial, partial),
+        (partial, partial, stacks, stacks, stacks))
+    return y.redistribute(mesh, x.placements), aux.redistribute(mesh, rep)
+
+
+def _moe(params, x, cfg: ModelConfig, capacity_factor: float,
+         first: int = 0):
+    """``moe_apply`` on plain tensors whose stacks hold experts [first,
+    first + E_local): every token is routed over all E experts, only the
+    local experts' slots are filled, run and combined, and the aux loss is
+    counted where ``first`` is 0 (the rank holding expert 0), so that the
+    ranks' outputs and aux losses sum to the whole MoE's."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
+    El = params["wg"].shape[0]
     T = B * S
     xt = x.reshape(T, d)
     logits = (xt @ params["router"].to(x.dtype)).float()
@@ -454,15 +500,21 @@ def moe_apply(params, x, cfg: ModelConfig,
     me = probs.mean(0)
     ce = F.one_hot(e_flat.reshape(T, k)[:, 0], E).float().mean(0)
     aux = E * torch.sum(me * ce)
+    if first:
+        aux = torch.zeros_like(aux)
+    if El < E:                     # this rank's experts only
+        e_flat = e_flat - first
+        keep = keep & (e_flat >= 0) & (e_flat < El)
+        e_flat = e_flat.clamp(0, El - 1)
 
     t_flat = torch.arange(T, device=x.device).repeat_interleave(k)
     contrib = xt[t_flat].masked_fill(~keep[:, None], 0)
-    buf = torch.zeros((E, C, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((El, C, d), dtype=x.dtype, device=x.device)
     buf = buf.index_put((e_flat, pos), contrib, accumulate=True)
     a = act_fn(cfg.act)
     h = a(torch.bmm(buf, params["wg"].to(x.dtype))) * \
         torch.bmm(buf, params["wu"].to(x.dtype))
-    h = torch.bmm(h, params["wd"].to(x.dtype))               # (E, C, d)
+    h = torch.bmm(h, params["wd"].to(x.dtype))               # (El, C, d)
     y = h[e_flat, pos] * g_flat[:, None].to(x.dtype)
     y = y.masked_fill(~keep[:, None], 0)
     # t_flat repeats each token k times in a row, so the combine is a sum
@@ -714,7 +766,7 @@ def mlstm_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
         out = _state_step(_mlstm_step, (q, k, v, logi, logf),
                           (qlay,) * 5, states, lay, qlay)     # (B,1,H,D)
     out = rmsnorm(params["out_norm"], out, cfg.norm_eps)
-    out = out.reshape(B, S, H * D).to(x.dtype) * u2
+    out = merge_heads(out).to(x.dtype) * u2
     return x + out @ params["w_down"].to(x.dtype), cache
 
 
@@ -793,8 +845,16 @@ def _slstm_step(r, carry, pre_x, one):
 
 def _slstm_scan(pre_x, r):
     """The sLSTM recurrence over a whole sequence from a zero state:
-    pre_x (B,S,4d) float32 -> h (B,S,d)."""
-    B, _, d4 = pre_x.shape
+    pre_x (B,S,4d) float32 -> h (B,S,d). On ``meta`` tensors (the dry
+    run: shapes, no values) the S steps run as one step over all B·S rows
+    — the same matmuls, forward and backward, without S trips through the
+    host (the recurrent input taken from ``pre_x`` so that its grad is
+    formed, as every step but the first forms it)."""
+    B, S, d4 = pre_x.shape
+    if pre_x.device.type == "meta":
+        one = torch.ones((), dtype=torch.float32, device="meta")
+        state = pre_x[..., :d4 // 4] * 0
+        return _slstm_step(r, (state,) * 4, pre_x, one)[1]
     zero = torch.zeros((B, d4 // 4), dtype=torch.float32,
                        device=pre_x.device)
     one = torch.ones((), dtype=torch.float32, device=pre_x.device)

@@ -27,8 +27,8 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..sharding.dtensor import (constrain, keep_dims, on_local, replicate,
-                                summed_over, zeros)
+from ..sharding.dtensor import (constrain, gathered, keep_dims, on_local,
+                                replicate, summed_over, zeros)
 from . import layers as L
 from .config import (ATTN, ATTN_LOCAL, ATTENTION_KINDS, MLSTM, RGLRU, SLSTM,
                      ModelConfig)
@@ -149,7 +149,9 @@ def _group(x, positions, gparams, cfg: ModelConfig, gcache=None,
            act_sharding=None):
     """One group of blocks -> (x, aux); ``gcache`` (decode) is updated in
     place. Under a mesh the residual stream is redistributed to
-    ``act_sharding`` after every block."""
+    ``act_sharding`` after every block, and params split over the data
+    axes (FSDP) are gathered there first (in the remat recompute again)."""
+    gparams = _tree_map(gathered, gparams)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, kind in enumerate(cfg.block_pattern):
         name = f"b{j}_{kind}"
@@ -188,7 +190,7 @@ def _embed(params, cfg: ModelConfig, tokens, frontend_embeds=None):
     if cfg.family in ("vlm", "audio") and cfg.frontend and \
             frontend_embeds is not None:
         proj = frontend_embeds.to(x.dtype) @ \
-            params["frontend_proj"].to(x.dtype)
+            gathered(params["frontend_proj"]).to(x.dtype)
         x = torch.cat([proj, x], dim=1)
     if cfg.attn_softcap:
         # gemma-style embedding scaling; the reference multiplies by a numpy
@@ -198,11 +200,11 @@ def _embed(params, cfg: ModelConfig, tokens, frontend_embeds=None):
 
 
 def _unembed(params, cfg: ModelConfig, x):
-    h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    h = L.rmsnorm(_tree_map(gathered, params["final_norm"]), x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = h @ params["embed"].to(h.dtype).T
+        logits = h @ gathered(params["embed"]).to(h.dtype).T
     else:
-        logits = h @ params["head"].to(h.dtype)
+        logits = h @ gathered(params["head"]).to(h.dtype)
     logits = logits.float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)

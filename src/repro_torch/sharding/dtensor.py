@@ -7,7 +7,9 @@ inside a block (rope's angles, a mask, a zero carry — the same on every
 rank) join DTensor arithmetic as a replicated DTensor; ``on_local`` runs a
 function on the local blocks of its DTensor arguments under ``local_map``,
 for work that DTensor's sharding propagation cannot split by itself (a
-loop over time, a gather/scatter routing, a CUDA kernel). ``zeros`` makes a
+loop over time, a gather/scatter routing, a CUDA kernel); ``gathered``
+makes a parameter split over the data axes (FSDP) whole there before use.
+``zeros`` makes a
 DTensor from each rank's block alone, and ``write_`` writes into a
 DTensor's own blocks in place (a decode cache).
 """
@@ -49,6 +51,22 @@ def replicate(t) -> tuple | None:
         return None
     from torch.distributed.tensor import Replicate
     return (Replicate(),) * t.device_mesh.ndim
+
+
+def gathered(t):
+    """``t`` with every split over a data axis ("pod", "data") made whole —
+    FSDP's gather of a parameter before it is used, so that the work it
+    takes part in stays split as its other dims are (``t`` itself when
+    nothing is to gather, or for a plain tensor)."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    names = t.device_mesh.mesh_dim_names or ()
+    want = tuple(Replicate() if p.is_shard() and names[i] in ("pod", "data")
+                 else p for i, p in enumerate(t.placements))
+    if want == tuple(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, want)
 
 
 def keep_dims(t, dims: tuple[int, ...]) -> tuple | None:

@@ -1016,3 +1016,131 @@ def test_mesh_decode_on_four_cards(cuda, tmp_path):
             (r, res)
     print("four-card mesh decode, largest difference over the largest "
           "value:", {k: v["err"] for k, v in res.items()})
+
+
+def mesh_moe(mesh) -> tuple[bool, float, int]:
+    """``moe_apply``'s forward and backward on ``mesh`` (its ranks on the
+    card) for ``tests/test_torch_moe_mesh.py``'s reduced float32 olmoe
+    with its 64 experts and top-8 kept, the stacks at the Partitioner's
+    layouts (split over ``model``), against the unsharded ``moe_apply`` on
+    this rank's card. Returns (the output, aux loss and every grad within
+    rtol 1e-4 and atol 1e-5 of each tensor's largest value, the largest
+    difference over the largest value, the experts this rank ran)."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_moe_mesh import B, S, TOL, moe_config
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L, transformer as T
+    from repro_torch.sharding.dtensor import like
+    from repro_torch.sharding.partition import Layout, Partitioner, shard_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = moe_config(get_config).replace(num_experts=64,
+                                         experts_per_token=8)
+    names = ("router", "wg", "wu", "wd")
+    stacked = {k: v.cuda() for k, v in T.init_params(
+        cfg, seed=0, device="cpu")["blocks"]["b0_attn"]["moe"].items()}
+    rng = np.random.default_rng(5)
+    x, w = (torch.from_numpy(rng.standard_normal((B, S, cfg.d_model))
+                             .astype(np.float32)).cuda() for _ in range(2))
+    part = Partitioner(cfg, mesh)
+    blocks = {"blocks": {"b0_attn": {"moe": stacked}}}
+    dparams = {k: v.unbind(0)[0] for k, v in shard_tree(
+        blocks, part.param_shardings(blocks))["blocks"]["b0_attn"][
+            "moe"].items()}
+    params = {k: v[0] for k, v in stacked.items()}
+    ran = []
+    moe = L._moe
+
+    def counting(p, *a, **kw):
+        ran.append(int(p["wg"].shape[0]))
+        return moe(p, *a, **kw)
+
+    def fwd_bwd(p, xin):
+        leaves = [xin.detach().requires_grad_(True)] + \
+            [p[k].detach().requires_grad_(True) for k in names]
+        y, aux = L.moe_apply(dict(zip(names, leaves[1:])), leaves[0], cfg)
+        loss = (y * like(w, y)).sum() + 3.0 * aux
+        return [y, aux, *torch.autograd.grad(loss, leaves)]
+
+    L._moe = counting
+    try:
+        got = fwd_bwd(dparams, Layout(mesh, part.activation_spec(B))
+                      .distribute(x))
+        experts = ran.pop()
+        want = fwd_bwd(params, x)
+    finally:
+        L._moe = moe
+    ok, worst = True, 0.0
+    for g, h in zip(got, want):
+        g = (g.full_tensor() if hasattr(g, "full_tensor") else g).detach()
+        h = h.detach()
+        top = float(h.abs().max())
+        ok &= bool(torch.allclose(g, h, rtol=TOL["rtol"],
+                                  atol=TOL["atol"] * top))
+        worst = max(worst, float((g - h).abs().max()) / max(top, 1e-30))
+    return ok, worst, experts
+
+
+def test_mesh_moe_on_the_card_matches_unsharded(cuda_mesh):
+    """``mesh_moe`` on a 1x1 CUDA mesh: the expert-parallel path runs all
+    64 experts on the one rank, equal to the unsharded run within rtol
+    1e-4."""
+    ok, worst, experts = mesh_moe(cuda_mesh)
+    assert ok and experts == 64, (worst, experts)
+
+
+MESH_MOE = r"""
+import json, os, sys
+from datetime import timedelta
+import torch.distributed as dist
+rank, out, port = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sys.path.insert(0, os.path.dirname(os.path.abspath(sys.argv[4])))
+from test_torch_cuda import mesh_moe
+from repro_torch.launch.mesh import make_host_mesh
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=4,
+                        timeout=timedelta(seconds=300))
+ok, err, experts = mesh_moe(make_host_mesh(1, 4))
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(dict(ok=ok, err=err, experts=experts), f)
+dist.destroy_process_group()
+print("MESH-MOE-OK")
+"""
+
+
+def test_moe_on_four_cards(cuda, tmp_path):
+    """``mesh_moe`` on a 1x4 mesh of four cards (NCCL, one process per
+    card): each card runs 16 of the 64 experts, and the combine summed
+    over the four equals one card's unsharded run within rtol 1e-4. Skips
+    with fewer than four cards."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (one process per card)")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_MOE, str(r), str(tmp_path), str(port),
+         __file__], env=dict(os.environ, OMP_NUM_THREADS="1",
+                             PYTHONPATH=os.path.join(root, "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0] * 4, \
+        [log[-3000:] for log in logs]
+    for r in range(4):
+        with open(tmp_path / f"rank{r}.json") as f:
+            res = json.load(f)
+        assert res["ok"] and res["experts"] == 16, (r, res)
+    print("four-card expert-parallel MoE, largest difference over the "
+          "largest value:", res["err"])

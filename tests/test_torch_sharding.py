@@ -141,7 +141,8 @@ def test_dryrun_cells_match_the_reference_specs(arch):
     for multi_pod in (False, True):
         sizes, axes = MESHES["2x16x16" if multi_pod else "16x16"]
         for shape_name in SHAPES_BY_NAME:
-            rec = dryrun.run_cell(arch, shape_name, multi_pod=multi_pod)
+            rec = dryrun.run_cell(arch, shape_name, multi_pod=multi_pod,
+                                  step=False)
             cfg = ref_config(arch)
             if shape_name == "long_500k" and not cfg.sub_quadratic:
                 assert rec["status"] == "skipped"
@@ -165,7 +166,7 @@ def test_dryrun_cells_match_the_reference_specs(arch):
 
 def test_dryrun_cli_sweeps_every_cell(capsys):
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--all", "--both-meshes"])
+        dryrun.main(["--all", "--both-meshes", "--specs-only"])
     assert e.value.code == 0
     out = capsys.readouterr().out
     assert "80/80 cells ok, 0 errors" in out
