@@ -53,9 +53,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                promote, 4c, 4d, 4e's zoo example, the campaign's write
                calls) must stay under 44 GiB; the plan is checked before
                phase 3 starts.
-  4. training path — full-width recurrentgemma-2b cut to the first 10
+  4. training path — full-width recurrentgemma-2b cut to the first 7
                blocks of its 13-block pattern ((RG-LRU, RG-LRU, local
-               attention) x 3, RG-LRU; weights from a seeded
+               attention) x 2, RG-LRU; weights from a seeded
                torch.Generator), through the port's ``Trainer`` at batch 8 x
                255 tokens: run 1 trains 3 steps with an async checkpoint at
                step 2 (keep=1) — step 3 updates the state in place right
@@ -63,11 +63,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                the fingerprint kernel as the save is called; run 2, a fresh
                ``Trainer`` on the same directory, must resume at step 2 with
                every digest equal and train 2 more steps. One checkpoint of
-               15.18 GB (the full depth's 28.94 GB, and 13 layers' 17.75 GB,
-               left no room in the machine's 45 GiB of disk writes per call
-               for 4f's three copies of xlstm-350m), so phase 4 and 4e
-               numbers at this depth are not comparable with those of other
-               depths. Every loss must be finite and the RG-LRU kernel must
+               12.61 GB (the full depth's 28.94 GB, 13 layers' 17.75 GB and
+               10 layers' 15.18 GB left no room in the machine's 45 GiB of
+               disk writes per call for 4f's three copies of xlstm-350m and
+               4k's checkpoint), so phase 4 and 4e numbers at this depth are
+               not comparable with those of other depths. Every loss must be finite and the RG-LRU kernel must
                be launched.
      4b. narrow float32 configs on the card against the CPU (plain path):
                two train steps each from one set of weights and batches — the
@@ -89,7 +89,7 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                moments get empty windows through ``window_fn``), each leaf
                equal to the saved state's digest; (b) 8 seeded requests of
                64-token prompts through one ``make_prefill_step`` call (the
-               RG-LRU scan once per RG-LRU block: 7 launches at
+               RG-LRU scan once per RG-LRU block: 5 launches at
                (8, 64, 2560), all on the bulk-copy path that phase 2 holds
                bit for bit at that shape) and ``steps.generate`` (the
                prompt teacher-forced through ``decode_step``, then 32
@@ -139,8 +139,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                leaf a DTensor whose local block equals the saved state's
                digest; steps 2 and 3 on DTensors (nothing written), each
                loss within 1e-4 relative of run 2's, B5 launched through
-               ``local_map`` 21 times a step; step walls beside run 1's
-               and run 2's, restore wall, peak memory; then a step 4 on
+               ``local_map`` 15 times a step; step walls beside run 1's
+               and run 2's, restore wall, peak memory; a warm step 4 whose
+               peak memory the dry run predicts (below); then a step 4 on
                the mesh under torch.profiler (kernel time and the host's
                operator calls beside run 2's profile). (b) after 4f's run 2 has checked
                its resume (its state is then the saved one, whose windows
@@ -157,7 +158,7 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                (the bytes read must be the param windows' extents, no
                moment byte), every local block equal to the saved state's
                digest (the fingerprint kernel); 4e's requests prefilled on
-               DTensors (B5 7 times under ``local_map``) and decoded by
+               DTensors (B5 5 times under ``local_map``) and decoded by
                ``generate`` through DTensor caches laid out by
                ``serve_cache_layouts``: decode vs prefill within 0.05, the
                greedy tokens equal to 4e's unsharded run, the largest
@@ -181,26 +182,52 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                layers (its train state reckoned on ``meta`` and printed
                beside full depth's 69.19 GB): two Trainer steps unsharded,
                then two from the same seed on the mesh, each loss within
-               1e-4 relative; step walls and peak memory. The MoE runs
-               torch ops only: no kernel of the five launches in 4j. A 1x1
-               mesh splits nothing: it proves the path and its dispatch
-               cost on the card; the split itself is held on gloo ranks
-               (tests/test_torch_moe_mesh.py) and four cards
+               1e-4 relative; step walls and peak memory, and a warm third
+               step on the mesh whose peak the dry run predicts (below).
+               The MoE runs torch ops only: no kernel of the five launches
+               in 4j. A 1x1 mesh splits nothing: it proves the path and its
+               dispatch cost on the card; the split itself is held on gloo
+               ranks (tests/test_torch_moe_mesh.py) and four cards
                (``test_moe_on_four_cards``).
+     4k. the slice's path, N writer threads in the rank of a mesh:
+               ``Trainer(mesh=make_host_mesh(1, 1), ckpt_writers=4,
+               async_ckpt=True)`` on a 1-rank NCCL group (commits over the
+               Trainer's gloo group), xlstm-350m at full width and the most
+               whole (mLSTM, sLSTM) groups whose 4-writer checkpoint the
+               write budget leaves room for (reckoned on ``meta``, printed
+               beside full depth's): (a) step 2 saved through 4 writer
+               threads over the rank's local blocks, every leaf digested
+               with B3 as the save is called, step 3 in place right after
+               ``wait_snapshotted()``, then step 3 of the same state; (b) a
+               fresh mesh Trainer with 4 writers resumes step 2, every
+               local block's digest equal, and reruns steps 2 and 3 with
+               losses equal to (a)'s to the last bit; (c) a single-writer
+               ``CheckpointManager`` restores the same step onto the card,
+               the same digests. Save wall, blocking seconds, the
+               ``wait_snapshotted()`` wait, each writer's wall and bytes,
+               aggregate GB/s, restore walls and read stalls are printed.
+  dry run vs card — ``launch.dryrun.measure_cell`` on a 1x1 fake mesh for
+               4h (a)'s and 4j (b)'s train steps (their configs and depths,
+               8 x 255 tokens, one microbatch; a process of its own on
+               ``meta``, started after phase 1): each predicted
+               ``peak_hbm_bytes`` against the step's own peak on the card
+               (``max_memory_allocated()`` of the warm step, less what was
+               allocated beside its arguments) within 10%.
   5. chaos — the port's seeded chaos campaign with restores on the card, for
                the JAX package's gate seeds (0, 42): zero invariant
                violations, >= 200 faults fired, every required kind class.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
-the per-kernel JSON (launches summed over phases 3, 4, 4e, 4f, 4h (a) and
-4i, each counted from zero), and the one before that the nvidia-smi line.
-The run needs one card, the repository's ``src/`` and ``examples/`` beside
-this file, and room for one ~16 GB checkpoint under ``build/``.
+the per-kernel JSON (launches summed over phases 3, 4, 4e, 4f, 4h (a), 4i
+and 4k, each counted from zero), and the one before that the nvidia-smi
+line. The run needs one card, the repository's ``src/`` and ``examples/``
+beside this file, and room for one ~13 GB checkpoint under ``build/``.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import functools
 import json
 import math
@@ -236,15 +263,16 @@ TRAIN_SHAPE = (8, 255, 2560)       # (batch, tokens, lru_dim) of phase 4
 SERVE_RGLRU = (8, 64, 2560)        # the same of 4e's prefill (SERVE_SHAPE)
 # The chip machine takes at most 45 GiB of disk writes per call, deleted
 # files included. Phase 4 writes one recurrentgemma-2b checkpoint at the
-# first 10 blocks of its 13-block pattern (every width kept: 15.18 GB; the
-# full depth's 28.94 GB and 13 layers' 17.75 GB left no room for phase 4f's
-# failover, which writes xlstm-350m's 4.29 GB three times: level 0, level
-# 1 and the promote after node loss), and phase 3 runs qwen2.5-3b at a cut
+# first 7 blocks of its 13-block pattern (every width kept: 12.61 GB; the
+# full depth's 28.94 GB, 13 layers' 17.75 GB and 10 layers' 15.18 GB left
+# no room for phase 4f's failover, which writes xlstm-350m's 4.29 GB three
+# times: level 0, level 1 and the promote after node loss, and 4k's
+# 4-writer checkpoint), and phase 3 runs qwen2.5-3b at a cut
 # depth: every width kept, 1 of its 36 stacked layers (~1.57 GB per save
 # with quantized moments; nine such saves, flushes, uploads and promotes, a
 # 512 MiB probe, and (D)'s 4-writer save of ~2.49 GB: the stacked block
 # leaves, leading dim 1, are replicated on every writer rank).
-TRAIN_LAYERS = 10
+TRAIN_LAYERS = 7
 XLSTM_ARCH = "xlstm-350m"          # phase 4f: the CLI's default, no cut
 XLSTM_KERNELS = ("fingerprint_chunks",)   # 4f: the digests of its leaves
 FAILOVER_CKPT_EVERY = 2            # 4f (i): step 2 saved, step 4's torn
@@ -255,6 +283,7 @@ MOE_GATED_CAPACITY = 8.0           # no drops: prefill and decode route
 #                                    alike (tests/test_models.py)
 MOE_TRAIN_LAYERS = 8               # 4j (b): 35.6 of full depth's 69.2 GB of
 #                                    params and moments, grads beside them
+DRYRUN_TOL = 0.10                  # dry-run peak against the card's step
 CHECKPOINT_LAYERS = 1
 PROBE_BYTES = 512 << 20
 WRITE_LIMIT = 44 << 30             # the run's own budget under the 45 GiB
@@ -880,12 +909,35 @@ def planned_writes(save_bytes: int, probe_bytes: int,
     level-1 flush and its promote after node loss, and what the torn save
     of step 4 may write before the kill (``TORN_ALLOWANCE``); and 1 GiB for
     the delta steps, manifests, 4c's and 4d's narrow saves, the chaos
-    campaign and alignment."""
+    campaign and alignment. 4k's checkpoint is added by
+    ``mesh_writers_depth``, which sizes it to what is left."""
     return {"probe": probe_bytes, "(A)": 3 * save_bytes,
             "(B)": 2 * save_bytes, "(C)": len(ENGINE_ORDER) * save_bytes,
             "(D)": multi_bytes, "phase 4": train_bytes, "4e zoo": zoo_bytes,
             "4f failover": 3 * xlstm_bytes, "4f torn step": TORN_ALLOWANCE,
             "margin": 1 << 30}
+
+
+def mesh_writers_config(groups: int):
+    """4k's model: xlstm-350m at full width, ``groups`` whole (mLSTM,
+    sLSTM) groups of its 12."""
+    from repro_torch.configs import get_config
+    cfg = get_config(XLSTM_ARCH)
+    return cfg.replace(num_layers=groups * len(cfg.block_pattern))
+
+
+def mesh_writers_depth(planned: int) -> tuple[int, int]:
+    """(groups, bytes) of 4k: the most whole groups of xlstm-350m whose
+    ``WRITERS``-writer checkpoint (reckoned on ``meta``) fits the write
+    budget beside the rest of the plan (``planned`` bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.steps import init_train_state
+    for groups in range(get_config(XLSTM_ARCH).num_groups, 0, -1):
+        need = multi_writer_estimate(flat_leaves(init_train_state(
+            mesh_writers_config(groups), device="meta")), set(), WRITERS)
+        if planned + need < WRITE_LIMIT:
+            return groups, need
+    fail("no depth of xlstm-350m fits 4k's checkpoint in the write budget")
 
 
 def stall(root: str) -> dict:
@@ -2637,6 +2689,53 @@ def mesh_step_profile(trainer, state) -> dict:
     return device_profile(prof, wall, 1, label="4h (a) mesh step 4 profile")
 
 
+def mesh_batch(trainer, step: int) -> dict:
+    """Step ``step``'s batch at the mesh Trainer's layouts."""
+    import torch
+    return {k: trainer.batch_layouts[k].distribute(
+        torch.as_tensor(v, device=trainer.device))
+        for k, v in trainer.pipeline.batch_at(step).items()}
+
+
+def mesh_step(trainer, state, step: int) -> float:
+    """One train step of the mesh Trainer's DTensor state on step
+    ``step``'s batch, outside the Trainer (nothing is saved); its loss."""
+    from repro_torch.train.steps import make_train_step
+    step_fn = make_train_step(trainer.cfg, trainer.opt_cfg,
+                              grad_shardings=trainer.grad_shardings,
+                              act_sharding=trainer.act_sharding)
+    _, metrics = step_fn(state, mesh_batch(trainer, step))
+    return float(metrics["loss"])
+
+
+def step_peak(trainer, state, step: int, phase: str) -> dict:
+    """The card's memory over one warm train step of a mesh Trainer's
+    state (``mesh_step``), ``reset_peak_memory_stats()`` just before it:
+    ``max_memory_allocated()``, and the bytes already allocated beside the
+    step's arguments (state and batch), which the dry run does not see."""
+    import torch
+    from repro_torch.launch.dryrun import storages
+    batch = mesh_batch(trainer, step)
+    args = sum(storages((state, batch)).values())
+    del batch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = mesh_step(trainer, state, step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(loss):
+        fail(f"{phase} memory step {step} loss {loss}")
+    out = dict(max_memory_allocated=peak, allocated_before=before,
+               argument_bytes=args, resident_bytes=before - args,
+               step_peak_bytes=peak - (before - args))
+    log(f"  {phase} warm step {step} (reset_peak_memory_stats before it): "
+        f"max_memory_allocated {peak} B; allocated before it {before} B, "
+        f"of which the step's arguments {args} B; the step's own peak "
+        f"{out['step_peak_bytes']} B")
+    return out
+
+
 def mesh_resume(cfg, root: str, saved: dict, run1: dict, run2: dict
                 ) -> dict:
     """Phase 4h (a): phase 4's checkpoint of step 2 resumed by a third
@@ -2682,6 +2781,7 @@ def mesh_resume(cfg, root: str, saved: dict, run1: dict, run2: dict
             _lib.reset_launches()
             out = trainer.run((state, start))
             launches = _lib.LAUNCHES["rglru_scan"]
+            memory = step_peak(trainer, out["state"], 4, "4h (a)")
             prof_out = mesh_step_profile(trainer, out["state"])
         finally:
             trainer.close()
@@ -2722,7 +2822,7 @@ def mesh_resume(cfg, root: str, saved: dict, run1: dict, run2: dict
     torch.cuda.empty_cache()
     return dict(restore_s=restore_s, steps=steps, loss_rel_diff=diffs,
                 launches={"rglru_scan": launches}, peak_device_bytes=peak,
-                profile=prof_out)
+                profile=prof_out, memory=memory)
 
 
 # ------------------------------------------------------------ phase 4i
@@ -3127,7 +3227,7 @@ def moe_mesh_train(cfg=None, device: str = "cuda") -> dict:
     from repro_torch.train.steps import init_train_state
     from repro_torch.train.trainer import Trainer, TrainerConfig
     full = get_config(MOE_ARCH)
-    cfg = cfg or full.replace(num_layers=MOE_TRAIN_LAYERS)
+    cfg = cfg or moe_train_config()
     cuda = device == "cuda"
     total = state_bytes(flat_leaves(init_train_state(cfg, device="meta")))
     whole = state_bytes(flat_leaves(init_train_state(full, device="meta")))
@@ -3154,6 +3254,8 @@ def moe_mesh_train(cfg=None, device: str = "cuda") -> dict:
         run = dict(steps=log_steps(tag, res, tokens),
                    peak_device_bytes=torch.cuda.max_memory_allocated()
                    if cuda else None)
+        if cuda and mesh is not None:
+            run["memory"] = step_peak(trainer, res["state"], 2, "4j (b)")
         del res
         return run
 
@@ -3184,6 +3286,241 @@ def moe_mesh_train(cfg=None, device: str = "cuda") -> dict:
         + " / ".join(f"{m['seconds']:.3f}" for m in out["unsharded"]["steps"])
         + f" s; peak device memory {out['mesh']['peak_device_bytes']} B vs "
         f"{out['unsharded']['peak_device_bytes']} B")
+    return out
+
+
+def moe_train_config():
+    """4j (b)'s model: olmoe-1b-7b at full width, ``MOE_TRAIN_LAYERS`` of
+    its 16 layers."""
+    from repro_torch.configs import get_config
+    return get_config(MOE_ARCH).replace(num_layers=MOE_TRAIN_LAYERS)
+
+
+# ------------------------------------------------------------ phase 4k
+def mesh_writers(cfg, root: str, tally: WriteTally,
+                 device: str = "cuda") -> dict:
+    """Phase 4k, the slice's path: ``Trainer(mesh=make_host_mesh(1, 1),
+    ckpt_writers=WRITERS, async_ckpt=True)`` on a 1-rank NCCL group (the
+    Trainer's own gloo group carries the commits) for ``cfg``, xlstm-350m
+    at full width. (a) Steps 0-2, step 2 saved through the writer threads
+    over the rank's local blocks (each leaf digested with B3 as the save
+    is called), step 3 in place right after ``wait_snapshotted()``; then
+    a step 3 of the same state outside the Trainer (the uninterrupted
+    run's). (b) A fresh mesh Trainer with the same writers resumes step 2
+    (every local block's digest equal to the save's) and reruns steps 2
+    and 3: losses equal to (a)'s to the last bit. (c) A single-writer
+    ``CheckpointManager`` on the card restores the same step: the same
+    digests. (A narrow ``cfg`` and ``device="cpu"`` rehearse it on a gloo
+    group; B3 does not launch there, so only the launch check fails.)"""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import CheckpointManager, MultiWriterCheckpointer
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    B, S = TRAIN_SHAPE[0], TRAIN_SHAPE[1]
+    meta = init_train_state(cfg, device="meta")
+    total = state_bytes(flat_leaves(meta))
+    out: dict = {"layers": cfg.num_layers, "writers": WRITERS,
+                 "state_bytes": total}
+    log(f"4k {cfg.name}: {cfg.num_layers} of 24 layers, every width kept; "
+        f"train state {total} B; {WRITERS} writer threads on a 1x1 {device} "
+        f"mesh; batch {B} x {S} tokens")
+    shutil.rmtree(root, ignore_errors=True)
+    dev = torch.device(device)
+    release(dev)
+    _lib.reset_launches()
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device=device)
+
+        def trainer(steps, every):
+            return Trainer(cfg, TrainerConfig(
+                steps=steps, ckpt_every=every, ckpt_dir=root,
+                async_ckpt=True, ckpt_writers=WRITERS, keep=1, log_every=1,
+                seed=0), device=device, mesh=mesh)
+
+        t1 = trainer(3, 2)
+        if not isinstance(t1.ckpt, MultiWriterCheckpointer) or \
+                t1.ckpt.group.num_ranks != WRITERS:
+            fail(f"4k: the mesh Trainer built {type(t1.ckpt).__name__}")
+        saved: dict = {}
+        save = t1.ckpt.save
+
+        def digesting_save(step, state):
+            saved[step] = digests(local_leaves(state["train"]))
+            return save(step, state)
+
+        t1.ckpt.save = digesting_save
+        try:
+            r1 = t1.run()
+            losses = finite_losses(r1, [0, 1, 2])
+            t0 = time.perf_counter()
+            losses.append(mesh_step(t1, r1["state"], 3))
+            step3_s = time.perf_counter() - t0
+        finally:
+            t1.close()
+        snap = r1["ckpt_snapshot_wait_seconds"]
+        out["steps"] = log_steps("4k (a)", r1, B * S)
+        log(f"  4k (a) step 3 (outside the Trainer): {step3_s:.3f} s, loss "
+            f"{losses[3]:.4f}")
+        del r1
+        written = du(root)
+        tally.add("4k multi-writer checkpoint", written)
+        sm = t1.save_log[0]
+        step_dir = os.path.join(root, "step_00000002")
+        ranks = sorted(n for n in os.listdir(step_dir)
+                       if n.startswith("MANIFEST.rank-"))
+        if list(saved) != [2] or len(ranks) != WRITERS or \
+                sm.num_ranks != WRITERS:
+            fail(f"4k saved {list(saved)} with rank manifests {ranks}")
+        writers = [dict(rank=r, total_bytes=pm.total_bytes,
+                        wall_s=pm.end_to_end_seconds,
+                        flush_s=pm.flush_seconds)
+                   for r, pm in enumerate(sm.per_rank)]
+        out["save"] = dict(
+            wall_s=sm.end_to_end_seconds, blocking_s=sm.blocking_seconds,
+            snapshot_wait_s=snap, total_bytes=sm.total_bytes,
+            on_disk_bytes=written, aggregate_gbps=sm.aggregate_gbps,
+            writers=writers)
+        log(f"4k (a) async save of step 2 through {WRITERS} writer threads: "
+            f"wall {sm.end_to_end_seconds:.3f} s, blocking "
+            f"{sm.blocking_seconds:.3f} s, wait_snapshotted() "
+            f"{out['save']['snapshot_wait_s']:.3f} s, {sm.total_bytes} B at "
+            f"{sm.aggregate_gbps:.3f} GB/s aggregate")
+        for w in writers:
+            log(f"  writer {w['rank']}: {w['total_bytes']} B, wall "
+                f"{w['wall_s']:.3f} s, flush {w['flush_s']:.3f} s")
+        out["losses"] = losses
+
+        t2 = trainer(4, 5)      # checkpoints every 5: nothing written
+        try:
+            state, start = t2.initial_state()
+            got = digests(local_leaves(state))
+            bad = [k for k in saved[2] if not torch.equal(got[k],
+                                                          saved[2][k])]
+            if start != 2 or got.keys() != saved[2].keys() or bad:
+                fail(f"4k (b) resumed step {start}; leaves differing from "
+                     f"the save: {bad[:3]}")
+            r2 = t2.run((state, start))
+        finally:
+            t2.close()
+        del state
+        rerun = finite_losses(r2, [2, 3])
+        out["resumed_steps"] = log_steps("4k (b)", r2, B * S)
+        del r2
+        if rerun != losses[2:]:
+            fail(f"4k (b) reran steps 2 and 3 with losses {rerun!r}, (a) "
+                 f"had {losses[2:]!r}")
+        out["resume"] = dict(
+            restore_s=t2.restore_attr["restore_seconds"],
+            read_stall_s=t2.restore_attr.get("restore_read_stall_s"),
+            losses=rerun)
+        log(f"4k (b) resumed step 2 in {out['resume']['restore_s']:.3f} s "
+            f"(read stall {out['resume']['read_stall_s']:.3f} s), "
+            f"{len(got)} local blocks' digests equal to the save's; steps 2 "
+            f"and 3 rerun with losses {rerun} equal to (a)'s to the last bit")
+    finally:
+        dist.destroy_process_group()
+    release(dev)
+    with CheckpointManager(root, device=dev) as mgr:
+        sync(dev)
+        t0 = time.perf_counter()
+        plain = mgr.restore(state_template={"train": meta, "data": None},
+                            step=2)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        rm = mgr.last_restore_metrics
+    got = digests(plain["train"])
+    del plain
+    bad = [k for k in saved[2] if not torch.equal(got[k], saved[2][k])]
+    if got.keys() != saved[2].keys() or bad:
+        fail(f"4k (c) single-writer restore differs at {bad[:3]}")
+    out["single_writer_restore"] = dict(wall_s=wall,
+                                        read_stall_s=rm.read_stall_seconds)
+    out["launches"] = {k: _lib.LAUNCHES[k] for k in XLSTM_KERNELS}
+    log(f"4k (c) a single-writer CheckpointManager restored step 2 onto "
+        f"the card in {wall:.3f} s (read stall {rm.read_stall_seconds:.3f} "
+        f"s), every digest equal; kernel launches in 4k: {out['launches']}")
+    for name, count in out["launches"].items():
+        if count <= 0:
+            fail(f"4k never launched {name}")
+    shutil.rmtree(root, ignore_errors=True)
+    release(dev)
+    return out
+
+
+# ------------------------------------------------- the dry run vs the card
+def dryrun_cells(path: str) -> None:
+    """Run ``measure_cell`` on a 1x1 fake mesh for 4h (a)'s and 4j (b)'s
+    train steps (their configs, depths, batch and one microbatch); the
+    records go to ``path``. The run starts it as a process of its own (a
+    fake process group, ``meta`` tensors, no card)."""
+    sys.path.insert(0, SRC)
+    import torch
+    torch.set_num_threads(2)
+    from repro_torch.launch.dryrun import measure_cell
+    from repro_torch.models.config import ShapeConfig
+    shape = ShapeConfig("train_smoke", TRAIN_SHAPE[1], TRAIN_SHAPE[0],
+                        "train")
+    out = {}
+    for phase, cfg in (("4h (a)", train_config()),
+                       ("4j (b)", moe_train_config())):
+        t0 = time.perf_counter()
+        rec = measure_cell(cfg, shape, (1, 1), ("data", "model"),
+                           microbatches=1)
+        rec["wall_s"] = time.perf_counter() - t0
+        out[phase] = rec
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def dryrun_vs_card(proc, path: str, measured: dict) -> dict:
+    """Each dry-run peak (``dryrun_cells``, run beside the phases) against
+    the step's own peak on the card (``step_peak``): within
+    ``DRYRUN_TOL``."""
+    try:
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or not os.path.exists(path):
+        fail(f"the dry run of 4h (a) and 4j (b) exited {proc.returncode}")
+    with open(path) as f:
+        recs = json.load(f)
+    out = {}
+    for phase, card in measured.items():
+        rec = recs[phase]
+        if rec["status"] != "ok":
+            fail(f"dry run of {phase}: {rec.get('error')}")
+        pd = rec["per_device"]
+        want = card["step_peak_bytes"]
+        ratio = pd["peak_hbm_bytes"] / want
+        row = dict(predicted_peak_bytes=pd["peak_hbm_bytes"],
+                   argument_bytes=pd["argument_bytes"],
+                   output_bytes=pd["output_bytes"],
+                   alias_bytes=pd["alias_bytes"],
+                   temp_bytes=pd["temp_bytes"], card=card, ratio=ratio,
+                   dryrun_wall_s=rec["wall_s"])
+        out[phase] = row
+        log(f"dry run vs card, {phase} ({rec['arch']}, 1x1, "
+            f"{TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]} tokens, 1 microbatch; "
+            f"{rec['wall_s']:.1f} s on meta): predicted peak "
+            f"{pd['peak_hbm_bytes']} B (argument {pd['argument_bytes']}, "
+            f"output {pd['output_bytes']}, temp {pd['temp_bytes']}, alias "
+            f"{pd['alias_bytes']}); card: the step's peak {want} B "
+            f"(max_memory_allocated {card['max_memory_allocated']} B less "
+            f"{card['resident_bytes']} B resident beside the arguments, "
+            f"whose {card['argument_bytes']} B the dry run counts "
+            f"{pd['argument_bytes']}); predicted / measured {ratio:.4f} "
+            f"(limit 1 +- {DRYRUN_TOL})")
+        if abs(ratio - 1) > DRYRUN_TOL:
+            fail(f"the dry run's peak for {phase} is {ratio:.4f} of the "
+                 f"card's")
     return out
 
 
@@ -3246,11 +3583,14 @@ def main(argv=None) -> int:
     # one CPU rank of phase 4h (b), started by the run itself
     for flag in ("--mesh-restore-rank", "--world", "--port"):
         ap.add_argument(flag, type=int, default=-1, help=argparse.SUPPRESS)
-    for flag in ("--ckpt", "--report"):
+    for flag in ("--ckpt", "--report", "--dryrun-cells"):
         ap.add_argument(flag, default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.mesh_restore_rank >= 0:
         mesh_restore_rank(args)
+        return 0
+    if args.dryrun_cells:
+        dryrun_cells(args.dryrun_cells)
         return 0
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail("src/repro_torch not found beside chip_smoke.py")
@@ -3276,6 +3616,14 @@ def main(argv=None) -> int:
             log(f"  ptxas {entry}: {line.split(':', 1)[-1].strip()}")
     smi = nvidia_smi()
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    # the dry run of 4h (a)'s and 4j (b)'s steps, on meta beside the phases
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    dry_path = os.path.join(HERE, "build", "smoke_dryrun.json")
+    dry_log = open(os.path.join(HERE, "build", "smoke_dryrun.log"), "w")
+    dry = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                            "--dryrun-cells", dry_path], cwd=HERE,
+                           stdout=dry_log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: dry.poll() is None and (dry.kill(), dry.wait()))
 
     # phase 2: kernels against their plain versions (tolerance: bit-exact)
     results: dict = {}
@@ -3318,6 +3666,10 @@ def main(argv=None) -> int:
         multi_writer_estimate(tensors, quant, WRITERS), zoo_estimate(),
         state_bytes(flat_leaves(init_train_state(get_config(XLSTM_ARCH),
                                                  device="meta"))))
+    groups, plan["4k"] = mesh_writers_depth(sum(plan.values()))
+    log(f"4k depth: {groups} of 12 (mLSTM, sLSTM) groups of {XLSTM_ARCH}, "
+        f"{plan['4k']} B to write (full depth "
+        f"{plan['4f failover'] // 3} B of train state)")
     log(f"write plan: {sum(plan.values())} B "
         f"({sum(plan.values()) / 2**30:.2f} GiB, limit "
         f"{WRITE_LIMIT / 2**30:.1f} GiB): " + ", ".join(
@@ -3378,6 +3730,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mesh["cli"] = mesh_cli()
     log(f"4h (c): {time.perf_counter() - t0:.1f} s")
+    # phase 4k: writer threads in the rank of a 1x1 mesh
+    t0 = time.perf_counter()
+    writers = mesh_writers(mesh_writers_config(groups),
+                           os.path.join(HERE, "build", "smoke_mw_mesh"), tally)
+    log(f"4k: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     training["cpu_vs_card"] = [cpu_vs_card(cfg, tokens, label) for
                                label, cfg, tokens in card_vs_cpu_cases()]
@@ -3395,6 +3752,11 @@ def main(argv=None) -> int:
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
     tally.check("at the end")
     main_path["write_tally"] = dict(tally.parts, total=tally.total)
+    t0 = time.perf_counter()
+    dry_vs_card = dryrun_vs_card(dry, dry_path, {
+        "4h (a)": mesh["memory"],
+        "4j (b)": moe_mesh["train"]["mesh"]["memory"]})
+    log(f"dry run vs card: {time.perf_counter() - t0:.1f} s waited")
 
     launches = {name: main_path["launches"].get(name, 0)
                 + training["launches"].get(name, 0)
@@ -3402,6 +3764,7 @@ def main(argv=None) -> int:
                 + xlstm["launches"].get(name, 0)
                 + mesh["launches"].get(name, 0)
                 + serve_on_mesh["launches"].get(name, 0)
+                + writers["launches"].get(name, 0)
                 for name in KERNELS}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3419,7 +3782,8 @@ def main(argv=None) -> int:
             json.dump(dict(card=smi, kernels=results, main_path=main_path,
                            training=training, serving=serving, xlstm=xlstm,
                            moe=moe, moe_mesh=moe_mesh, mesh=mesh,
-                           serve_mesh=serve_on_mesh,
+                           serve_mesh=serve_on_mesh, mesh_writers=writers,
+                           dryrun_vs_card=dry_vs_card,
                            chaos=chaos_run), f,
                       indent=1)
     print(smi)

@@ -16,7 +16,8 @@ same name:
   checkpoint   CheckpointManager: async save, atomic commit, restore
                (DTensor leaves and templates: each rank's local window)
   multiwriter  N concurrent writer ranks, two-phase rank-0 merge commit,
-               elastic N→M restore; the same commit over torch.distributed
+               elastic N→M restore; the same commit over torch.distributed,
+               and N writer threads in each of its processes
   tiered       tier-to-tier transfer engine: extent-hedged flush + prefetch
   multilevel   local→shared-directory two-level flush, hedged stragglers
   grouplevel   the same two levels for the ranks of a torch.distributed
@@ -41,8 +42,8 @@ from .manifest import ChunkRef, Manifest, ManifestError
 from .multilevel import FlushStats, MultiLevelCheckpointer
 from .multiwriter import (CommitCoordinator, DistGroup, InProcessGroup,
                           MultiSaveMetrics, MultiWriterAborted,
-                          MultiWriterCheckpointer, process_group_manager,
-                          shard_state)
+                          MultiWriterCheckpointer, NestedDistGroup,
+                          process_group_manager, shard_state)
 from .remote import (ObjectStore, RangeStats, RemoteCheckpointer,
                      RemoteConfig, RemoteError, RemotePrefetcher, RemoteTier,
                      RemoteTransferEngine, RemoteTransientError,

@@ -45,6 +45,9 @@ the owner dies).
 ``DistGroup`` is the same shim over ``torch.distributed`` (one process per
 rank, e.g. the owners of a DTensor's shards): ``process_group_manager``
 gives each process a manager that commits through the same protocol.
+``NestedDistGroup`` nests the two: N writer threads in each of M processes
+(``MultiWriterCheckpointer(process_group=)``), M x N writers in one commit —
+each process splits its own DTensor windows over its threads.
 
 ``delta=True`` composes per rank: each rank diffs its own shard windows
 with the fp128 device fingerprint (DESIGN.md §14) against the prior
@@ -68,7 +71,8 @@ from .aggregation import partition_spans
 from .checkpoint import CheckpointManager, step_dir_name, write_owner
 from .engines import EngineConfig
 from .manifest import Manifest
-from .pipeline import host_resident, snapshot_copy
+from .pipeline import (dtensor_window, host_resident, is_dtensor,
+                       snapshot_copy)
 from .serialization import (LocalShard, path_str, tensor_to_numpy,
                             tree_leaves_with_path, tree_map_with_path)
 
@@ -104,6 +108,7 @@ class InProcessGroup:
         if num_ranks < 1:
             raise ValueError("num_ranks must be >= 1")
         self.num_ranks = num_ranks
+        self.first_rank = 0
         self._barrier = threading.Barrier(num_ranks)
         self._vals: list = [None] * num_ranks
 
@@ -140,6 +145,9 @@ class InProcessGroup:
         """Rank 0's commit outcome, seen by ``rank`` after the phase-2
         barrier (threads share the coordinator's error slot)."""
         return failed
+
+    def begin(self) -> None:
+        pass
 
     def abort(self) -> None:
         """Break the barrier: peers blocked (or arriving) get
@@ -189,6 +197,105 @@ class DistGroup:
 
     def reset(self) -> None:
         pass
+
+
+class NestedDistGroup:
+    """N writer threads in each process of a ``torch.distributed`` group:
+    writer rank = process rank x N + thread, ``num_ranks`` = M x N.
+
+    Every group operation (barrier, allgather, ``rank0_failed``) is one
+    round: the process's N threads meet at a thread barrier whose action —
+    run by exactly one thread — issues one ``all_gather_object`` on the
+    group, so each process issues its collectives in the same order. A
+    round carries a failure flag: a thread that fails calls ``abort()``,
+    which stands in for all its remaining rounds by arriving once as
+    failed; every thread of every process then raises
+    ``MultiWriterAborted`` from that same round, and none issues another
+    collective, so the group stays usable for the next save. (A process
+    that dies is seen as the backend's timeout, as in ``DistGroup``.)
+    ``agree`` is a process-level call: the coordinator makes it once per
+    step, from the thread that runs the save before its writer threads start
+    (``MultiWriterCheckpointer._save_all``)."""
+
+    def __init__(self, threads: int, group=None):
+        if threads < 1:
+            raise ValueError("threads must be >= 1")
+        self.dist = DistGroup(group)
+        self.threads = threads
+        self.num_ranks = self.dist.num_ranks * threads
+        self.first_rank = self.dist.rank * threads   # this process's thread 0
+        self._lock = threading.Lock()
+        self._vals: list = [None] * threads
+        self._failed = False       # crlint: guarded-by(_lock)
+        self._settled = False      # crlint: guarded-by(_lock)
+        self._out: list = []
+        self._barrier = threading.Barrier(threads, action=self._exchange)
+
+    def _exchange(self) -> None:
+        with self._lock:
+            mine = (self._failed, list(self._vals))
+            self._failed = False
+        self._out = self.dist.allgather(mine, self.dist.rank)
+
+    def _round(self, value=None, rank: int | None = None) -> list:
+        """One round: every writer's ``value`` in writer-rank order (each
+        thread reads the result before it can reach the next round, whose
+        action alone replaces it)."""
+        if rank is not None:
+            self._vals[rank - self.first_rank] = value
+        try:
+            with trace.span("barrier", tier="commit",
+                            attrs={"ranks": self.num_ranks}):
+                self._barrier.wait()
+        except threading.BrokenBarrierError:
+            raise MultiWriterAborted(
+                "a writer thread's group collective failed") from None
+        out = self._out
+        if any(failed for failed, _ in out):
+            raise MultiWriterAborted("a writer thread of the group failed")
+        return [v for _, vals in out for v in vals]
+
+    def begin(self) -> None:
+        """A new save: its rounds are open again."""
+        with self._lock:
+            self._settled = False
+
+    def barrier(self) -> None:
+        self._round()
+
+    def allgather(self, value, rank: int, num_ranks: int | None = None
+                  ) -> list:
+        if num_ranks is not None and num_ranks != self.num_ranks:
+            raise ValueError(
+                f"allgather across {num_ranks} ranks on a "
+                f"{self.num_ranks}-rank group")
+        return self._round(value, rank)
+
+    def agree(self, value):
+        return self.dist.agree(value)
+
+    def rank0_failed(self, failed: bool, rank: int) -> bool:
+        out = bool(self._round(failed, rank)[0])
+        with self._lock:
+            self._settled = True     # the commit's last round
+        return out
+
+    def abort(self) -> None:
+        """A failed thread's stand-in for its remaining rounds: one round
+        flagged as failed (none when the save's last round has passed)."""
+        with self._lock:
+            if self._settled:
+                return
+            self._failed = True
+        try:
+            self._barrier.wait()
+        except threading.BrokenBarrierError:
+            pass
+
+    def reset(self) -> None:
+        self._barrier.reset()
+        with self._lock:
+            self._failed = False
 
 
 class CommitCoordinator:
@@ -250,6 +357,11 @@ class CommitCoordinator:
             if rank == 0:
                 raise self._err
             raise MultiWriterAborted("rank-0 commit failed") from self._err
+        # drop the staging entry only on success — on failure it stays
+        # registered so _save_all's discard() can reclaim it (every
+        # process's coordinator holds one under a process group)
+        with self._lock:
+            self._tmp.pop(step, None)
 
     def _merge_publish(self, mgr: CheckpointManager, tmp: str,
                        step: int) -> None:
@@ -271,10 +383,6 @@ class CommitCoordinator:
         mgr._publish(tmp, step)
         mgr._gc_old()
         self._err = None
-        # drop the staging entry only on success — on failure it stays
-        # registered so _save_all's discard() can reclaim it
-        with self._lock:
-            self._tmp.pop(step, None)
 
 
 class GroupCheckpointManager(CheckpointManager):
@@ -345,6 +453,12 @@ def shard_state(state, num_ranks: int, *, snapshot: bool = False
     every host-resident payload so an async caller may mutate it the moment
     ``save`` returns; device payloads stay views, protected by
     ``MultiWriterCheckpointer.wait_snapshotted``.
+
+    A DTensor leaf contributes this process's window only
+    (``pipeline.dtensor_window``): the rows of its LOCAL block are split
+    the same way, each piece's index offset by the window's start. A
+    replica that is not its window's writer, or an empty block, keeps the
+    DTensor leaf, which saves no window.
     """
     flat = tree_leaves_with_path(state)
     per_rank: list[list] = [[] for _ in range(num_ranks)]
@@ -354,6 +468,19 @@ def shard_state(state, num_ranks: int, *, snapshot: bool = False
                 lv.append(leaf)
             continue
         arr = leaf.detach() if isinstance(leaf, torch.Tensor) else leaf
+        window = None
+        if is_dtensor(arr):
+            layout = dtensor_window(arr.device_mesh, arr.placements,
+                                    arr.shape)
+            local = arr.to_local()
+            if arr.ndim and (layout is None or not layout[1]
+                             or (not local.numel() and arr.numel())):
+                for lv in per_rank:
+                    lv.append(arr)     # no window of this process
+                continue
+            gs, arr = tuple(arr.shape), local
+            if arr.ndim:
+                window = layout[0]
         if arr.ndim == 0:
             scalar = arr
             if isinstance(arr, torch.Tensor):
@@ -368,13 +495,20 @@ def shard_state(state, num_ranks: int, *, snapshot: bool = False
             continue
         if snapshot and host_resident(arr):
             arr = snapshot_copy(arr)
+        if window is None:
+            gs = tuple(arr.shape)
+            window = tuple((0, d) for d in gs)
         if arr.shape[0] < num_ranks:
+            # replicated: the full window on every rank
+            leaf = arr if tuple(arr.shape) == gs \
+                else LocalShard(arr, window, gs)
             for lv in per_rank:
-                lv.append(arr)     # replicated: full window on every rank
+                lv.append(leaf)
             continue
-        gs = tuple(arr.shape)
-        for r, (lo, hi) in enumerate(partition_spans(gs[0], num_ranks)):
-            idx = ((lo, hi),) + tuple((0, d) for d in gs[1:])
+        start = window[0][0]
+        for r, (lo, hi) in enumerate(partition_spans(arr.shape[0],
+                                                     num_ranks)):
+            idx = ((start + lo, start + hi),) + window[1:]
             per_rank[r].append(LocalShard(arr[lo:hi], idx, gs))
     return [_unflatten(state, lv) for lv in per_rank]
 
@@ -405,6 +539,13 @@ class MultiWriterCheckpointer:
     manifest); ``restore_sharded`` materializes per-reader-rank windows on
     an M-rank mesh. ``mgr_kw`` (``device=`` among them) goes to every
     rank's manager, and to the fresh readers of ``restore_sharded``.
+
+    With ``process_group`` (a ``torch.distributed`` group, e.g. a gloo
+    group beside a DeviceMesh's) every process of the group runs its own
+    checkpointer of ``num_ranks`` writer threads over its share of the
+    state (its DTensor windows) and calls ``save`` together with the
+    others: M x N writer ranks commit one step (``NestedDistGroup``), and
+    each process's ``restore`` reads its own windows.
     """
 
     def __init__(self, directory: str, num_ranks: int, *,
@@ -412,12 +553,13 @@ class MultiWriterCheckpointer:
                  config: EngineConfig | None = None,
                  async_save: bool = False, keep: int = 3,
                  verify_crc: bool = True, streaming: bool = True,
-                 **mgr_kw):
+                 process_group=None, **mgr_kw):
         self.directory = os.path.abspath(directory)
         self.num_ranks = num_ranks
         self.async_save = async_save
         self.engine_name = engine
-        self.group = InProcessGroup(num_ranks)
+        self.group = (InProcessGroup(num_ranks) if process_group is None
+                      else NestedDistGroup(num_ranks, process_group))
         self.coordinator = CommitCoordinator(self.group)
         base = config if config is not None else EngineConfig()
         self._base_config = replace(base)
@@ -427,10 +569,13 @@ class MultiWriterCheckpointer:
             # ranks share files under SINGLE_FILE: nobody truncates a peer's
             # extents (the tmp dir is fresh per step, so nothing is stale)
             cfg.truncate = False
-            mgr = CheckpointManager(
-                directory, engine=engine, config=cfg, async_save=False,
-                keep=keep, verify_crc=verify_crc, streaming=streaming,
-                **mgr_kw)
+            kw = dict(engine=engine, config=cfg, async_save=False,
+                      keep=keep, verify_crc=verify_crc, streaming=streaming,
+                      **mgr_kw)
+            # across processes, the startup reap runs on process 0 alone
+            mgr = (CheckpointManager(directory, **kw)
+                   if process_group is None else
+                   GroupCheckpointManager(directory, self.group.dist, **kw))
             mgr.coordinator = self.coordinator
             mgr.allgather = self.group.allgather
             self.managers.append(mgr)
@@ -454,7 +599,7 @@ class MultiWriterCheckpointer:
         stream = _caller_stream(state)
         self._staged = [threading.Event() for _ in range(self.num_ranks)]
         metrics = MultiSaveMetrics(
-            step=step, num_ranks=self.num_ranks,
+            step=step, num_ranks=self.group.num_ranks,
             mode="async" if self.async_save else "blocking")
         self.last_save_metrics = metrics
         if self.async_save:
@@ -478,19 +623,28 @@ class MultiWriterCheckpointer:
             self._error = e
 
     def _save_all(self, step, shards, metrics, t0, stream=None) -> None:
-        n = self.num_ranks
+        n, base = self.group.num_ranks, self.group.first_rank
         staged = self._staged
+        self.group.begin()
+        try:
+            # the shared staging dir, agreed (a collective under a process
+            # group) before any writer thread starts
+            self.coordinator.tmp_dir(self.directory, step)
+        except BaseException:
+            for ev in staged:
+                ev.set()
+            raise
 
-        def save_rank(r: int):
+        def save_rank(t: int):
             # the rank's manager records its producer event on the caller's
             # stream, so its reads of device views follow the caller's work
             ctx = (torch.cuda.stream(stream) if stream is not None
                    else contextlib.nullcontext())
             try:
                 with ctx:
-                    return self.managers[r].save(
-                        step, shards[r], rank=r, num_ranks=n,
-                        on_staged=staged[r].set)
+                    return self.managers[t].save(
+                        step, shards[t], rank=base + t, num_ranks=n,
+                        on_staged=staged[t].set)
             except MultiWriterAborted:
                 # the group knows already (a broken barrier, or rank 0's
                 # failed commit seen after the last barrier): aborting
@@ -501,9 +655,9 @@ class MultiWriterCheckpointer:
                 self.group.abort()   # unblock peers stuck on a barrier
                 raise
             finally:
-                staged[r].set()      # never leave wait_snapshotted() hanging
+                staged[t].set()      # never leave wait_snapshotted() hanging
 
-        outs, errs = _fanout(n, save_rank, f"mw-rank-{step}")
+        outs, errs = _fanout(self.num_ranks, save_rank, f"mw-rank-{step}")
         if any(errs):
             self.group.reset()       # repair the barrier for the next save
             self.coordinator.discard(step)   # stale staging must not commit

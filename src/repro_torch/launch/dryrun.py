@@ -22,15 +22,31 @@ allocated and no device is needed. Per device it reports
                         all-to-all, collective-permute) and a ``count``,
                         seen by ``torch.distributed.tensor.debug.
                         CommDebugMode``
+    output_bytes      — the step's returned local bytes (each storage once)
+    alias_bytes       — those of them that are argument storage: the state
+                        AdamW updates in place (train), the decode caches
+                        (decode); the reference's donated buffers
+    peak_hbm_bytes    — the most local bytes live at once during the step,
+                        arguments included (``LiveBytes``: each op's new
+                        storages allocated at its output, freed when the
+                        storage dies, views sharing their base's)
+    temp_bytes        — the rest of the peak, under the reference's
+                        identity peak = argument + output + temp - alias
 
 beside the model's ``params`` / ``active_params``. Pure full-attention
 archs skip ``long_500k``, as in the reference. A torch counter counts every
 trip of a loop (layers, microbatches, remat recomputes), where XLA counts a
 while body once (``benchmarks/roofline.py``): hold these FLOPs to closed
-forms, not to the reference's number. Temporaries, outputs, aliases and
-the peak are not computed here. A sweep runs ``PROCESSES`` cells at once,
-each in a fresh process; ``--specs-only`` resolves the layouts alone
-(argument bytes and local shapes, in seconds).
+forms, not to the reference's number. The bytes are storage sizes as the
+ops ask for them: the CUDA caching allocator's rounding, cuBLAS's
+workspaces and the temporaries inside a kernel (a plain version on
+``meta`` may allocate other ones) are not seen. The reference's
+``cpu_cast_artifact_bytes`` and ``tpu_adjusted_peak_bytes`` correct XLA's
+CPU compile for float32 copies of bf16 operands that a TPU's MXU does not
+make; this dry run compiles nothing and runs every op in its own dtype, so
+they have no counterpart. A sweep runs ``PROCESSES`` cells at once, each in
+a fresh process; ``--specs-only`` resolves the layouts alone (argument
+bytes and local shapes, in seconds).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k
@@ -47,16 +63,18 @@ import json
 import os
 import time
 import traceback
+import weakref
 
 import numpy as np
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.debug import CommDebugMode
+from torch.utils._python_dispatch import is_traceable_wrapper_subclass
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import ARCH_IDS, get_config
-from ..core.serialization import tree_map_with_path
+from ..core.serialization import tree_leaves_with_path, tree_map_with_path
 from ..models.config import SHAPES_BY_NAME
 from ..sharding.partition import Layout, Partitioner
 from ..train.steps import make_prefill_step, make_serve_step, make_train_step
@@ -77,6 +95,80 @@ _FUNCOL = ("_c10d_functional", "c10d_functional")
 PROCESSES = min(4, os.cpu_count() or 1)   # a train cell's process: ~1 GB
 
 
+# ops whose result is their input on a device, where their meta kernels
+# return a fresh tensor
+_ALIASING = ("_wrap_tensor_autograd", "wait_tensor")
+
+
+class LiveBytes:
+    """The bytes of the storages live at once, and their peak: a storage
+    counts from the op output that first shows it until it dies (a weak
+    reference's callback), so a view costs nothing and an in-place op's
+    result is its input. On ``meta`` it allocates nothing and counts what
+    the same ops on a device would ask its allocator for. Storages that
+    are one allocation on a device (``_ALIASING``) share one count, freed
+    with the last of them."""
+
+    def __init__(self):
+        self.live = 0
+        self.peak = 0
+        self._refs: dict[int, tuple[weakref.ref, list]] = {}
+
+    def track(self, t: torch.Tensor, alias_of: torch.Tensor | None = None
+              ) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._refs:
+            return
+        base = None if alias_of is None else self._refs.get(
+            alias_of.untyped_storage()._cdata)
+        if base is not None:
+            entry = base[1]            # [bytes, storages alive]
+            entry[1] += 1
+        else:
+            entry = [st.nbytes(), 1]
+            self.live += entry[0]
+            self.peak = max(self.peak, self.live)
+
+        def gone(_ref, key=key, entry=entry):
+            self._refs.pop(key, None)
+            entry[1] -= 1
+            if not entry[1]:
+                self.live -= entry[0]
+        self._refs[key] = (weakref.ref(st, gone), entry)
+
+    def track_op(self, name: str, args, out) -> None:
+        src = args[0] if name in _ALIASING and args and isinstance(
+            args[0], torch.Tensor) else None
+        for t in (out if isinstance(out, (list, tuple)) else (out,)):
+            if isinstance(t, torch.Tensor) and not isinstance(t, FakeTensor):
+                for inner in _inner(t):
+                    self.track(inner, src)
+
+
+def _inner(t: torch.Tensor) -> list[torch.Tensor]:
+    """The plain tensors holding a tensor's bytes: a wrapper subclass (a
+    DTensor's local block, a collective's result still in flight) is
+    looked through."""
+    if not is_traceable_wrapper_subclass(t):
+        return [t]
+    names, _ = t.__tensor_flatten__()
+    return [x for n in names if isinstance(getattr(t, n), torch.Tensor)
+            for x in _inner(getattr(t, n))]
+
+
+def local_tensors(tree) -> list[torch.Tensor]:
+    """The plain tensors of a tree's tensor leaves."""
+    return [x for _p, t in tree_leaves_with_path(tree)
+            if isinstance(t, torch.Tensor) for x in _inner(t)]
+
+
+def storages(tree) -> dict[int, int]:
+    """{storage key: bytes} of the local tensors of a tree's leaves."""
+    return {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+            for t in local_tensors(tree)}
+
+
 class CostMode(CommDebugMode):
     """``CommDebugMode`` that tallies, on the rank's local tensors, the
     FLOPs of every op (``FlopCounterMode``'s formulas) and the result bytes
@@ -92,6 +184,7 @@ class CostMode(CommDebugMode):
     def __init__(self):
         super().__init__()
         self.counter = FlopCounterMode(display=False)
+        self.memory = LiveBytes()
         self.collective_bytes = dict.fromkeys(COLLECTIVES, 0)
         self.collective_bytes["count"] = 0
         self.gathers: list[tuple[tuple, int]] = []
@@ -108,6 +201,7 @@ class CostMode(CommDebugMode):
             return out
         packet = func._overloadpacket
         ns, _, name = packet._qualified_op_name.partition("::")
+        self.memory.track_op(name, args, out)
         kind = _KINDS.get(name)
         if ns in _FUNCOL and kind:
             self.comm_counts[packet] += 1
@@ -151,14 +245,16 @@ def fake_mesh(sizes: tuple[int, ...], names: tuple[str, ...]):
         dist.destroy_process_group()
 
 
-def _meta_dtensors(tree):
-    """An ``ArgSpec`` tree as DTensors of ``meta`` local blocks."""
+def _local_dtensors(tree, device: str = "meta"):
+    """An ``ArgSpec`` tree as DTensors of ``meta`` local blocks (zeros on
+    another ``device``: valid token ids and positions)."""
     def one(_path, s):
         if not isinstance(s, ArgSpec):
             return s
+        local = (torch.empty if device == "meta" else torch.zeros)(
+            s.local_shape, dtype=s.dtype, device=device)
         return DTensor.from_local(
-            torch.empty(s.local_shape, dtype=s.dtype, device="meta"),
-            s.layout.mesh, s.layout.placements_for(s.shape),
+            local, s.layout.mesh, s.layout.placements_for(s.shape),
             run_check=False, shape=torch.Size(s.shape),
             stride=torch.empty(s.shape, device="meta").stride())
     return tree_map_with_path(one, tree, is_leaf=lambda x: isinstance(
@@ -182,9 +278,11 @@ def act_layout(cfg, mesh, batch: int, seq_parallel: bool = False) -> Layout:
 
 
 def run_step(cfg, shape, mesh, info: dict, microbatches: int | None = None,
-             seq_parallel: bool = False) -> tuple[CostMode, int]:
-    """Run one cell's step on ``meta`` DTensors under ``CostMode``; returns
-    the mode and the microbatches the train step took."""
+             seq_parallel: bool = False, device: str = "meta"
+             ) -> tuple[CostMode, int, dict]:
+    """Run one cell's step on ``meta`` DTensors (or zeros on ``device``)
+    under ``CostMode``; returns the mode, the microbatches the train step
+    took and the memory fields of ``per_device``."""
     mode = info["mode"]
     mb = 1
     if mode == "train":
@@ -204,10 +302,21 @@ def run_step(cfg, shape, mesh, info: dict, microbatches: int | None = None,
         step = make_serve_step(cfg, act_sharding=act_layout(
             cfg, mesh, shape.global_batch))
         args = cell_args(info)
-    args = tuple(_meta_dtensors(a) for a in args)
-    with CostMode() as cost:
-        step(*args)
-    return cost, mb
+    args = tuple(_local_dtensors(a, device) for a in args)
+    argument = storages(args)
+    cost = CostMode()
+    for t in local_tensors(args):              # live from the start
+        cost.memory.track(t)
+    with cost:
+        out = step(*args)
+    outputs = storages(out)
+    output = sum(outputs.values())
+    alias = sum(n for k, n in outputs.items() if k in argument)
+    peak = cost.memory.peak
+    memory = {"output_bytes": output, "alias_bytes": alias,
+              "temp_bytes": peak - sum(argument.values()) - output + alias,
+              "peak_hbm_bytes": peak}
+    return cost, mb, memory
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
@@ -259,13 +368,14 @@ def measure_cell(cfg, shape, sizes: tuple[int, ...],
                 "argument_bytes": local_bytes(*args),
                 "local_shapes": {k: list(s.local_shape) for k, s in leaves}}
             if step:
-                cost, mb = run_step(cfg, shape, mesh, info, microbatches,
-                                    seq_parallel)
+                cost, mb, memory = run_step(cfg, shape, mesh, info,
+                                            microbatches, seq_parallel)
                 if shape.kind == "train":
                     rec["microbatches"] = mb
                 rec["step_s"] = round(time.perf_counter() - t0
                                       - rec["specs_s"], 3)
                 per_device.update(
+                    memory,
                     flops=cost.flops, collective_bytes=cost.collective_bytes,
                     all_gather_shapes=sorted({s for s, _ in cost.gathers}))
         rec["per_device"] = per_device
@@ -326,6 +436,7 @@ def main(argv=None) -> None:
             print(f"[{rec['status']:7s}] {rec['arch']:22s} "
                   f"{rec['shape']:12s} {rec['mesh']:8s} "
                   f"args={pd.get('argument_bytes', 0) / 1e9:8.3f}GB "
+                  f"peak={pd.get('peak_hbm_bytes', 0) / 1e9:8.3f}GB "
                   f"flops={pd.get('flops', 0):.3e} "
                   f"coll={sum(v for k, v in coll.items() if k != 'count') / 1e6:10.1f}MB "
                   f"leaves={len(pd.get('local_shapes', {})):4d}"

@@ -34,8 +34,12 @@ rank, every rank saves its own windows into one checkpoint, committed once
 level 1, every rank raises a failed flush, the ranks agree on the step to
 resume, and after node loss each rank prefetches its own windows' extents
 from level 1 into one staging dir that rank 0 promotes — on any mesh shape,
-so a run saved on 2x2 resumes on 1x4. ``ckpt_writers > 1`` is refused on
-such a mesh: its ranks are already the checkpoint's writers.
+so a run saved on 2x2 resumes on 1x4. ``ckpt_writers > 1`` on any mesh
+(1x1 included) nests N writer threads in each rank
+(``MultiWriterCheckpointer(process_group=)`` over the same gloo group):
+each rank splits the rows of its own windows over its threads, and the
+M x N writers commit one step, which resumes through ``restore(shardings=)``
+as any group checkpoint does.
 """
 
 from __future__ import annotations
@@ -89,12 +93,8 @@ class Trainer:
                 "multilevel_remote and ckpt_writers > 1 are mutually "
                 "exclusive: the two-level flusher wraps a single manager")
         group_ckpt = mesh is not None and mesh.size() > 1
-        if group_ckpt and tcfg.ckpt_writers > 1:
-            raise ValueError(
-                "a mesh of more than one rank saves through one group "
-                "checkpoint whose writers are the mesh's ranks; "
-                "ckpt_writers > 1 splits one process's state over writer "
-                "threads, which has no one-process-per-rank counterpart yet")
+        nested = (mesh is not None and tcfg.ckpt_every
+                  and tcfg.ckpt_writers > 1)
         self.cfg = cfg
         self.tcfg = tcfg
         self.mesh = mesh
@@ -115,7 +115,16 @@ class Trainer:
             self.pipeline = SyntheticPipeline(self.data_cfg, 0, 1)
             self._mesh_layouts()
         self.ckpt = None
-        if group_ckpt and (tcfg.multilevel_remote or tcfg.ckpt_every):
+        if nested:
+            # N writer threads in each rank, committing over a gloo group
+            import torch.distributed as dist
+            self.ckpt = MultiWriterCheckpointer(
+                tcfg.ckpt_dir, tcfg.ckpt_writers,
+                process_group=dist.new_group(backend="gloo"),
+                engine=tcfg.ckpt_engine, config=engine_config,
+                async_save=tcfg.async_ckpt, keep=tcfg.keep,
+                streaming=tcfg.streaming_ckpt, device=self.device)
+        elif group_ckpt and (tcfg.multilevel_remote or tcfg.ckpt_every):
             import torch.distributed as dist
             group = dist.new_group(backend="gloo")
             if tcfg.multilevel_remote:

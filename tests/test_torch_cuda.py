@@ -827,6 +827,149 @@ def test_two_level_trainer_on_the_card_resumes_after_node_loss(cuda,
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
+def test_mesh_writer_threads_on_the_card_match_cpu(cuda_mesh, tmp_path):
+    """``Trainer(mesh=, ckpt_writers=4)`` on a 1x1 CUDA mesh (its commits
+    over the Trainer's gloo group), narrow float32 xlstm-350m: both runs
+    start from the CPU's init saved as step 0 (the card's generator draws
+    other numbers); the card saves step 2 through 4 writer threads with
+    step 3 in place after the snapshot barrier, and a second mesh Trainer
+    resumes step 2. Losses against the unsharded CPU Trainer rtol 1e-4;
+    the resume's loss and every final local block equal to the
+    uninterrupted card run's bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.train.steps import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("xlstm-350m").scaled_down(layers=2, width_div=8,
+                                               vocab=512) \
+        .replace(dtype="float32")
+    data = DataConfig(cfg.vocab_size, 65, 4, seed=0)
+    eng = EngineConfig(backend="posix", direct=False)
+    init = {"train": init_train_state(cfg, seed=0, device="cpu"),
+            "data": {"data_step": 0}}
+    for d in ("card", "cpu"):
+        with CheckpointManager(str(tmp_path / d), config=eng,
+                               device="cpu") as mgr:
+            mgr.save(0, init)
+
+    def run(d, steps, mesh=None, writers=4):
+        t = Trainer(cfg, TrainerConfig(
+            steps=steps, ckpt_every=2, ckpt_dir=str(tmp_path / d),
+            ckpt_writers=writers, keep=None, log_every=1),
+            data_cfg=data, engine_config=eng,
+            device="cuda" if mesh is not None else "cpu", mesh=mesh)
+        try:
+            return t.run(), t.ckpt
+        finally:
+            t.close()
+
+    first, ckpt = run("card", 3, cuda_mesh)
+    assert isinstance(ckpt, MultiWriterCheckpointer)
+    assert ckpt.group.num_ranks == 4
+    assert sorted(n for n in os.listdir(tmp_path / "card" / "step_00000002")
+                  if n.startswith("MANIFEST.rank-")) == [
+        f"MANIFEST.rank-{r}" for r in range(4)]
+    again, _ = run("card", 3, cuda_mesh)
+    plain, _ = run("cpu", 3, writers=0)
+    losses = [m["loss"] for m in first["metrics"]]
+    np.testing.assert_allclose(losses, [m["loss"] for m in plain["metrics"]],
+                               rtol=1e-4)
+    assert again["start_step"] == 2
+    assert [m["loss"] for m in again["metrics"]] == losses[2:]
+    a, b = dict(_leaves(first["state"])), dict(_leaves(again["state"]))
+    assert a.keys() == b.keys()
+    for k in a:
+        assert _same(a[k].to_local(), b[k].to_local()), k
+
+
+MESH_WRITERS = r"""
+import hashlib, json, os, sys
+from datetime import timedelta
+import numpy as np
+import torch, torch.distributed as dist
+rank, out, port = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+from repro_torch.configs import get_config
+from repro_torch.core import EngineConfig
+from repro_torch.core.serialization import (path_str, tensor_to_numpy,
+                                            tree_leaves_with_path)
+from repro_torch.data import DataConfig
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.train.trainer import Trainer, TrainerConfig
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=4,
+                        timeout=timedelta(seconds=300))
+cfg = get_config("qwen2.5-3b").scaled_down(layers=2, width_div=8,
+                                           vocab=512).replace(dtype="float32")
+mesh = make_host_mesh(2, 2)
+res = {}
+for run in ("first", "again"):
+    t = Trainer(cfg, TrainerConfig(
+        steps=3, ckpt_every=2, ckpt_dir=os.path.join(out, "ckpt"),
+        ckpt_writers=2, keep=None, log_every=1),
+        data_cfg=DataConfig(cfg.vocab_size, 65, 4, seed=0),
+        engine_config=EngineConfig(backend="posix", direct=False),
+        device="cuda", mesh=mesh)
+    try:
+        r = t.run()
+    finally:
+        t.close()
+    res[run] = dict(
+        writers=t.ckpt.group.num_ranks, start=r["start_step"],
+        losses=[m["loss"] for m in r["metrics"]],
+        local={path_str(p): hashlib.sha256(np.ascontiguousarray(
+            tensor_to_numpy(v.to_local())).tobytes()).hexdigest()
+            for p, v in tree_leaves_with_path(r["state"])})
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+print("MESH-WRITERS-OK")
+"""
+
+
+def test_mesh_writer_threads_on_four_cards(cuda, tmp_path):
+    """``Trainer(mesh=2x2, ckpt_writers=2)`` on four cards (NCCL, one
+    process per card; 8 writers), narrow float32 qwen2.5-3b: step 2 saved
+    asynchronously with step 3 in place, then resumed; the resume's loss
+    and every final local block equal to the uninterrupted run's bit for
+    bit. Skips with fewer than four cards."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (one process per card)")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_WRITERS, str(r), str(tmp_path),
+         str(port)], env=dict(os.environ, OMP_NUM_THREADS="1",
+                              PYTHONPATH=os.path.join(root, "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0] * 4, \
+        [log[-3000:] for log in logs]
+    assert len([n for n in os.listdir(tmp_path / "ckpt" / "step_00000002")
+                if n.startswith("MANIFEST.rank-")]) == 8
+    for r in range(4):
+        with open(tmp_path / f"rank{r}.json") as f:
+            res = json.load(f)
+        first, again = res["first"], res["again"]
+        assert first["writers"] == again["writers"] == 8
+        assert again["start"] == 2
+        assert again["losses"] == first["losses"][2:]
+        assert again["local"] == first["local"], r
+
+
 def _mesh_cli(device: str, mesh: str, steps: int, every: int, l0, l1
               ) -> dict:
     """``torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh
