@@ -178,17 +178,21 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                greedy tokens equal to 4g's, decode vs prefill within 0.05;
                the last prompt logits' largest difference from 4g's,
                prefill ms, decode ms per step beside 4g's and peak memory
-               reported. (b) olmoe-1b-7b at full width cut to 8 of its 16
-               layers (its train state reckoned on ``meta`` and printed
-               beside full depth's 69.19 GB): two Trainer steps unsharded,
-               then two from the same seed on the mesh, each loss within
-               1e-4 relative; step walls and peak memory, and a warm third
-               step on the mesh whose peak the dry run predicts (below).
-               The MoE runs torch ops only: no kernel of the five launches
-               in 4j. A 1x1 mesh splits nothing: it proves the path and its
-               dispatch cost on the card; the split itself is held on gloo
-               ranks (tests/test_torch_moe_mesh.py) and four cards
-               (``test_moe_on_four_cards``).
+               reported beside the earlier slices' (``MOE_MESH_BEFORE``).
+               (b) olmoe-1b-7b at full width cut to 8 of its 16 layers (its
+               train state reckoned on ``meta`` and printed beside full
+               depth's 69.19 GB): two Trainer steps unsharded, then two
+               from the same seed on the mesh, each loss within 1e-4
+               relative; step walls and peak memory, the mesh run's peak at
+               most 1% above the earlier slices', and a warm third step on
+               the mesh whose peak the dry run predicts (below). The MoE's
+               mesh path keeps each rank's tokens on its data shard (the
+               slots counted over the whole batch, the capacity split over
+               ``data``); it runs torch ops only: no kernel of the five
+               launches in 4j. A 1x1 mesh splits nothing: it proves the
+               path and its dispatch cost on the card; the split itself is
+               held on gloo ranks (tests/test_torch_moe_mesh.py) and four
+               cards (``test_moe_on_four_cards``).
      4k. the slice's path, N writer threads in the rank of a mesh:
                ``Trainer(mesh=make_host_mesh(1, 1), ckpt_writers=4,
                async_ckpt=True)`` on a 1-rank NCCL group (commits over the
@@ -212,7 +216,13 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                ``meta``, started after phase 1): each predicted
                ``peak_hbm_bytes`` against the step's own peak on the card
                (``max_memory_allocated()`` of the warm step, less what was
-               allocated beside its arguments) within 10%.
+               allocated beside its arguments) within 10%. The same
+               process, with two more, runs the production MoE cells on
+               the 16x16 mesh (``PRODUCTION_MOE``: olmoe-1b-7b and
+               moonshot-v1-16b-a3b at ``prefill_32k`` and ``train_4k``)
+               and the run prints each one's peak, FLOPs and collective
+               bytes by kind; a ``prefill_32k`` peak above an 80 GB card
+               fails the run.
   5. chaos — the port's seeded chaos campaign with restores on the card, for
                the JAX package's gate seeds (0, 42): zero invariant
                violations, >= 200 faults fired, every required kind class.
@@ -284,6 +294,19 @@ MOE_GATED_CAPACITY = 8.0           # no drops: prefill and decode route
 MOE_TRAIN_LAYERS = 8               # 4j (b): 35.6 of full depth's 69.2 GB of
 #                                    params and moments, grads beside them
 DRYRUN_TOL = 0.10                  # dry-run peak against the card's step
+# 4j's numbers before the MoE's mesh path kept tokens on their data shard
+# (PERF.md: (a) the three card runs before it; (b) every card run before it)
+MOE_MESH_BEFORE = {"4j (a)": dict(prefill_ms=(174.59, 218.46),
+                                  decode_median_ms=(110.08, 120.42),
+                                  peak_device_bytes=14_264_452_608),
+                   "4j (b)": dict(peak_device_bytes=44_767_974_912)}
+MOE_PEAK_SLACK = 0.01              # 4j (b)'s mesh peak over the earlier one
+# the dry run's production MoE cells on 16x16, longest first
+PRODUCTION_MOE = (("moonshot-v1-16b-a3b", "train_4k"),
+                  ("olmoe-1b-7b", "train_4k"),
+                  ("moonshot-v1-16b-a3b", "prefill_32k"),
+                  ("olmoe-1b-7b", "prefill_32k"))
+CARD_BYTES = 80e9                  # an H100's device memory
 CHECKPOINT_LAYERS = 1
 PROBE_BYTES = 512 << 20
 WRITE_LIMIT = 44 << 30             # the run's own budget under the 45 GiB
@@ -3204,6 +3227,14 @@ def moe_mesh_serve(cfg, params, kept: dict, plain: dict,
                              mesh=mesh, keep=mine)
         out.update(held_to_unsharded("4j (a)", mine, kept, out, plain,
                                      against="4g"))
+        was = MOE_MESH_BEFORE["4j (a)"]
+        log(f"4j (a) beside the earlier slices' runs: prefill "
+            f"{out['prefill_s'] * 1e3:.2f} ms (then {was['prefill_ms'][0]}–"
+            f"{was['prefill_ms'][1]}), decode median "
+            f"{out['decode_median_ms']:.2f} ms per step (then "
+            f"{was['decode_median_ms'][0]}–{was['decode_median_ms'][1]}), "
+            f"peak {out['peak_device_bytes']} B (then "
+            f"{was['peak_device_bytes']})")
         del dparams
     finally:
         dist.destroy_process_group()
@@ -3279,13 +3310,19 @@ def moe_mesh_train(cfg=None, device: str = "cuda") -> dict:
                  f"{rel:.2e} from the unsharded {u['loss']} (limit 1e-4 "
                  f"relative)")
     out["loss_rel_diff"] = diffs
+    was = MOE_MESH_BEFORE["4j (b)"]["peak_device_bytes"]
+    peak = out["mesh"]["peak_device_bytes"]
+    if cuda and peak > was * (1 + MOE_PEAK_SLACK):
+        fail(f"4j (b)'s peak on the mesh, {peak} B, is more than "
+             f"{MOE_PEAK_SLACK:.0%} above the earlier slices' {was} B")
     log(f"4j (b) losses within {max(diffs):.2e} relative of the unsharded "
         f"run's (limit 1e-4); step walls on the mesh "
         + " / ".join(f"{m['seconds']:.3f}" for m in out["mesh"]["steps"])
         + " s vs unsharded "
         + " / ".join(f"{m['seconds']:.3f}" for m in out["unsharded"]["steps"])
         + f" s; peak device memory {out['mesh']['peak_device_bytes']} B vs "
-        f"{out['unsharded']['peak_device_bytes']} B")
+        f"{out['unsharded']['peak_device_bytes']} B (the mesh's before: "
+        f"{MOE_MESH_BEFORE['4j (b)']['peak_device_bytes']} B)")
     return out
 
 
@@ -3456,24 +3493,34 @@ def mesh_writers(cfg, root: str, tally: WriteTally,
 # ------------------------------------------------- the dry run vs the card
 def dryrun_cells(path: str) -> None:
     """Run ``measure_cell`` on a 1x1 fake mesh for 4h (a)'s and 4j (b)'s
-    train steps (their configs, depths, batch and one microbatch); the
-    records go to ``path``. The run starts it as a process of its own (a
-    fake process group, ``meta`` tensors, no card)."""
+    train steps (their configs, depths, batch and one microbatch), and the
+    ``PRODUCTION_MOE`` cells on 16x16 in two processes beside them (one
+    fake process group a process); the records go to ``path``. The run
+    starts it as a process of its own (``meta`` tensors, no card)."""
     sys.path.insert(0, SRC)
+    import multiprocessing
+
     import torch
     torch.set_num_threads(2)
-    from repro_torch.launch.dryrun import measure_cell
+    from repro_torch.launch.dryrun import _run_cell_args, measure_cell
     from repro_torch.models.config import ShapeConfig
     shape = ShapeConfig("train_smoke", TRAIN_SHAPE[1], TRAIN_SHAPE[0],
                         "train")
-    out = {}
-    for phase, cfg in (("4h (a)", train_config()),
-                       ("4j (b)", moe_train_config())):
-        t0 = time.perf_counter()
-        rec = measure_cell(cfg, shape, (1, 1), ("data", "model"),
-                           microbatches=1)
-        rec["wall_s"] = time.perf_counter() - t0
-        out[phase] = rec
+    out: dict = {"production": {}}
+    with multiprocessing.get_context("spawn").Pool(
+            2, initializer=torch.set_num_threads, initargs=(1,),
+            maxtasksperchild=1) as pool:
+        cells = pool.imap(_run_cell_args, [(arch, name, False, True)
+                                           for arch, name in PRODUCTION_MOE])
+        for phase, cfg in (("4h (a)", train_config()),
+                           ("4j (b)", moe_train_config())):
+            t0 = time.perf_counter()
+            rec = measure_cell(cfg, shape, (1, 1), ("data", "model"),
+                               microbatches=1)
+            rec["wall_s"] = time.perf_counter() - t0
+            out[phase] = rec
+        for (arch, name), rec in zip(PRODUCTION_MOE, cells):
+            out["production"][f"{arch} {name}"] = rec
     with open(path, "w") as f:
         json.dump(out, f)
 
@@ -3521,6 +3568,36 @@ def dryrun_vs_card(proc, path: str, measured: dict) -> dict:
         if abs(ratio - 1) > DRYRUN_TOL:
             fail(f"the dry run's peak for {phase} is {ratio:.4f} of the "
                  f"card's")
+    out["production"] = production_moe(recs["production"])
+    return out
+
+
+def production_moe(recs: dict) -> dict:
+    """The ``PRODUCTION_MOE`` cells' dry-run records on 16x16: peak,
+    FLOPs and collective bytes by kind, per device, printed; a cell that
+    failed, or a ``prefill_32k`` peak above ``CARD_BYTES``, fails the
+    run."""
+    out = {}
+    for cell, rec in recs.items():
+        if rec["status"] != "ok":
+            fail(f"dry run of {cell} on 16x16: {rec.get('error')}")
+        pd = rec["per_device"]
+        coll = {k: v for k, v in pd["collective_bytes"].items() if v}
+        out[cell] = dict(peak_hbm_bytes=pd["peak_hbm_bytes"],
+                         argument_bytes=pd["argument_bytes"],
+                         temp_bytes=pd["temp_bytes"], flops=pd["flops"],
+                         collective_bytes=coll,
+                         all_gather_shapes=pd["all_gather_shapes"],
+                         step_s=rec["step_s"])
+        log(f"dry run {cell} on 16x16 (per device, no card): peak "
+            f"{pd['peak_hbm_bytes']} B (argument {pd['argument_bytes']}, "
+            f"temp {pd['temp_bytes']}), {pd['flops']:.4e} FLOPs, collective "
+            f"bytes " + ", ".join(f"{k} {v}" for k, v in coll.items())
+            + f"; {rec['step_s']:.1f} s on meta")
+        if cell.endswith("prefill_32k") and \
+                pd["peak_hbm_bytes"] > CARD_BYTES:
+            fail(f"the dry run's peak for {cell} on 16x16, "
+                 f"{pd['peak_hbm_bytes']} B, is over an 80 GB card")
     return out
 
 

@@ -30,8 +30,9 @@ work is independent per batch row, head or channel: the attention and
 mLSTM cores per (batch row, head) (``_heads_local``: GQA's reshape and the
 einsums' flattening of a split head; ``merge_heads`` in training), the
 sLSTM loop over time (per batch row, the recurrent weights whole), the MoE
-routing, dispatch and experts (every token whole, since the capacity
-counts over the whole batch; each rank's own experts, ``moe_apply``),
+router, dispatch, experts and combine (each rank's own tokens, their
+slots counted over the whole batch, its own experts over its share of the
+slots; ``moe_apply``),
 ``log_sigmoid`` (``pointwise``) and the RG-LRU scan (``kernels.rglru``).
 Rope's angles join as a replicated DTensor (``like``).
 """
@@ -425,17 +426,22 @@ def moe_capacity(T: int, cfg: ModelConfig, capacity_factor: float) -> int:
                min(T, 4 * k))
 
 
-def moe_route(probs, cfg: ModelConfig, capacity: int):
+def moe_route(probs, cfg: ModelConfig, capacity: int, before=None):
     """Top-k routing of (T, E) float32 router probabilities -> (gates,
     idx, pos, keep), each (T·k,) in token-major order: the normalised gate,
     the expert, the slot in that expert (a running count over the tokens,
     drops clamped to ``capacity - 1``) and whether the slot is within
-    capacity."""
+    capacity. ``before`` (E,) counts each expert's assignments among the
+    tokens ahead of these (the earlier shards of a batch split over the
+    data axes); their slots come first, so that a shard's slots are the
+    whole batch's."""
     gates, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     e_flat = idx.reshape(-1)
     onehot = F.one_hot(e_flat, cfg.num_experts)              # (T*k, E)
-    pos = ((onehot.cumsum(0) - 1) * onehot).sum(-1)
+    pos = onehot.cumsum(0).gather(1, e_flat[:, None])[:, 0] - 1
+    if before is not None:
+        pos = pos + before[e_flat]
     keep = pos < capacity
     return gates.reshape(-1), e_flat, pos.clamp_max(capacity - 1), keep
 
@@ -447,79 +453,195 @@ def moe_apply(params, x, cfg: ModelConfig,
     GEMMs over it, and each token sums its k gated expert outputs. The
     Switch load-balance loss is E · Σ_e f_e · p_e.
 
-    Under a mesh the experts are parallel (EP): the expert stacks stay
-    split over the mesh dims that split their expert dim (``model`` by the
-    Partitioner's rule; a split of another dim, FSDP's over ``data``, is
-    gathered), and each rank runs its own experts' (E/n, C, d) slice of the
-    dispatch buffer on its local blocks. The routing — capacity and slots —
-    counts over the whole batch on every rank, so the tokens and the
-    router are whole there. Each rank's combine holds only its experts'
-    outputs: a pending sum over the splitting dims, reduced to ``x``'s
-    layout. Where nothing splits the experts (E does not divide the model
-    axis) every rank runs them all."""
+    Under a mesh the experts are parallel (EP) and each token stays on its
+    data shard (``_Split``). A rank routes the tokens of its shard of the
+    batch (their sequence made whole within its ``model`` group); the
+    shards' per-expert counts are gathered over the data axes and the
+    earlier shards' go first (``moe_route``'s ``before``), so the slots
+    are the whole batch's. Each rank fills its experts' (E/n, C', d)
+    buffer at its tokens' slots (C' is C rounded up to a multiple of the
+    data axes' size; the slots from C on stay empty), and a reduce-scatter
+    over the data axes leaves it (E/n, C'/dp, d) — each slot has one
+    filling shard. The expert stacks stay split over the mesh dims that
+    split their expert dim (``model`` by the Partitioner's rule; a split
+    of another dim, FSDP's over ``data``, is gathered). The outputs are
+    gathered back along the slots; each rank combines its tokens' outputs
+    from its experts, a pending sum over the splitting dims reduced to
+    ``x``'s layout. The aux loss sums the probs and the top-1 picks over
+    the data axes. Where nothing splits the experts (E does not divide the
+    model axis) every rank runs them all over its share of the slots."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
-    if not is_dtensor(x):
-        return _moe(params, x, cfg, capacity_factor)
-    mesh = x.device_mesh
-    rep = replicate(x)
-    stacks = keep_dims(params["wg"], (0,))       # the expert dim's splits
-    first = 0
-    for i, p in enumerate(stacks):
-        if p.is_shard():
-            first = first * mesh.size(i) + mesh.get_local_rank(i)
-    first *= cfg.num_experts // math.prod(
-        mesh.size(i) for i, p in enumerate(stacks) if p.is_shard())
-    partial = summed_over(stacks)
-    y, aux = on_local(
-        lambda x, r, *ws: _moe(dict(zip(("router", "wg", "wu", "wd"),
-                                        (r, *ws))),
-                               x, cfg, capacity_factor, first),
-        (x, params["router"], params["wg"], params["wu"], params["wd"]),
-        (rep, rep, stacks, stacks, stacks), (partial, partial),
-        (partial, partial, stacks, stacks, stacks))
-    return y.redistribute(mesh, x.placements), aux.redistribute(mesh, rep)
+    split = _Split(x, keep_dims(params["wg"], (0,)), cfg.num_experts) \
+        if is_dtensor(x) else None
+    return _moe(params, x, cfg, capacity_factor, split)
+
+
+class _Split:
+    """Where ``moe_apply``'s work lies. Each mesh dim has one role: a data
+    axis over which ``x``'s batch is split (``rows``), a data axis that
+    does not split it (``slots``: its ranks hold the same tokens), a dim
+    that splits the expert stacks (``experts``), or none. The capacity
+    slots split over every data axis. The placements of the MoE's tensors
+    follow from the roles (``LAYOUTS``). Off a mesh (no ``x``) there is
+    one shard holding every expert, and every layout is None."""
+
+    # name: (rows, slots, experts) — "S0"/"S1" split along that dim, "P"
+    # a pending sum, None a whole copy (the role-less dims always are)
+    LAYOUTS = {"tok": ("S0", None, None),            # the shard's tokens
+               "whole": (None, None, None),
+               "summed": ("P", None, None),          # sums over the tokens
+               "own": ("S0", None, "P"),             # from its experts
+               "filled": ("P", None, "S0"),          # the dispatch buffer
+               "mine": ("S1", "S1", "S0"),           # the rank's slots
+               "stacks": (None, None, "S0"),
+               "stack_grads": ("P", "P", "S0")}
+
+    def __init__(self, x=None, stacks=None, num_experts: int = 0):
+        self.mesh = None if x is None else x.device_mesh
+        self.shard, self.first, self.ways = 0, 0, 1
+        self.local = num_experts
+        self.layouts = dict.fromkeys(self.LAYOUTS)
+        if self.mesh is None:
+            return
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        mesh, names = self.mesh, self.mesh.mesh_dim_names or ()
+        data = {i for i, n in enumerate(names) if n in ("pod", "data")}
+        rows = {i for i, p in enumerate(x.placements)
+                if p.is_shard() and p.dim % x.ndim == 0}
+        experts = {i for i, p in enumerate(stacks) if p.is_shard()}
+        if not rows <= data or experts & data:
+            raise ValueError(
+                f"moe_apply on a mesh of {names}: the batch splits over "
+                f"the data axes only and the experts over none of them, "
+                f"not x at {tuple(x.placements)} and the stacks at {stacks}")
+        for i in sorted(rows):                    # the batch's split order
+            self.shard = self.shard * mesh.size(i) + mesh.get_local_rank(i)
+        for i in sorted(experts):
+            self.first = self.first * mesh.size(i) + mesh.get_local_rank(i)
+            self.local //= mesh.size(i)
+        self.first *= self.local
+        for i in data:
+            self.ways *= mesh.size(i)
+        role = [0 if i in rows else 1 if i in data else 2 if i in experts
+                else None for i in range(mesh.ndim)]
+        make = {"S0": lambda: Shard(0), "S1": lambda: Shard(1),
+                "P": Partial, None: Replicate}
+        self.layouts = {name: tuple(make[None if r is None else by_role[r]]()
+                                    for r in role)
+                        for name, by_role in self.LAYOUTS.items()}
+
+    def to(self, t, placements):
+        return t if self.mesh is None else t.redistribute(self.mesh,
+                                                          placements)
 
 
 def _moe(params, x, cfg: ModelConfig, capacity_factor: float,
-         first: int = 0):
-    """``moe_apply`` on plain tensors whose stacks hold experts [first,
-    first + E_local): every token is routed over all E experts, only the
-    local experts' slots are filled, run and combined, and the aux loss is
-    counted where ``first`` is 0 (the rank holding expert 0), so that the
-    ranks' outputs and aux losses sum to the whole MoE's."""
-    B, S, d = x.shape
-    E, k = cfg.num_experts, cfg.experts_per_token
-    El = params["wg"].shape[0]
+         split: _Split | None = None):
+    """``moe_apply`` in four stages on a rank's local blocks (``on_local``)
+    — the router over its shard's tokens, their slots and the dispatch
+    buffer, the experts over its slots, the combine — and, between them on
+    a mesh, the collectives: the shards' counts gathered, the aux loss's
+    sums reduced, the buffer reduce-scattered along the slots and the
+    outputs gathered. Off a mesh the stages are plain calls, one shard
+    with every expert, so a 1x1 mesh computes what the unsharded MoE
+    does."""
+    split = split or _Split(num_experts=cfg.num_experts)
+    B, S, _ = x.shape
+    E = cfg.num_experts
     T = B * S
-    xt = x.reshape(T, d)
-    logits = (xt @ params["router"].to(x.dtype)).float()
-    probs = torch.softmax(logits, dim=-1)                    # (T, E)
     C = moe_capacity(T, cfg, capacity_factor)
-    g_flat, e_flat, pos, keep = moe_route(probs, cfg, C)
-    me = probs.mean(0)
-    ce = F.one_hot(e_flat.reshape(T, k)[:, 0], E).float().mean(0)
-    aux = E * torch.sum(me * ce)
-    if first:
-        aux = torch.zeros_like(aux)
-    if El < E:                     # this rank's experts only
-        e_flat = e_flat - first
-        keep = keep & (e_flat >= 0) & (e_flat < El)
-        e_flat = e_flat.clamp(0, El - 1)
+    slots = -(-C // split.ways) * split.ways                 # C'
+    lay = split.layouts
+    tok, whole, summed, own = (lay[n] for n in ("tok", "whole", "summed",
+                                                "own"))
+    filled, mine, stacks = lay["filled"], lay["mine"], lay["stacks"]
 
-    t_flat = torch.arange(T, device=x.device).repeat_interleave(k)
-    contrib = xt[t_flat].masked_fill(~keep[:, None], 0)
-    buf = torch.zeros((El, C, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((e_flat, pos), contrib, accumulate=True)
+    xs = split.to(x, tok)               # once: the router and the dispatch
+    probs, counts, sums = on_local(
+        lambda x, r: _moe_router(x, r, cfg), (xs, params["router"]),
+        (tok, whole), (tok, tok, summed), (tok, summed))
+    sums = split.to(sums, whole)
+    aux = E * torch.sum((sums[0] / T) * (sums[1] / T))
+    buf, g, e, pos, keep = on_local(
+        lambda x, p, c: _moe_dispatch(x, p, c, cfg, C, slots, split),
+        (xs, probs, counts), (tok, tok, whole),
+        (filled, tok, tok, tok, tok), (own, tok, whole))
+    h = on_local(
+        lambda b, *ws: _moe_experts(b, *ws, cfg),
+        (split.to(buf, mine), params["wg"], params["wu"], params["wd"]),
+        (mine, stacks, stacks, stacks), mine,
+        (mine, *(lay["stack_grads"],) * 3))
+    y = on_local(
+        lambda h, *r: _moe_combine(h, *r, split, cfg, S),
+        (split.to(h, stacks), g, e, pos, keep),
+        (stacks, tok, tok, tok, tok), own, (filled, own, tok, tok, tok))
+    if split.mesh is None:
+        return y, aux
+    return split.to(y, x.placements), aux
+
+
+def _moe_router(x, router, cfg: ModelConfig):
+    """A shard's router -> (probs (T, E) float32, its assignments per
+    expert (1, E), the aux loss's sums over its tokens (2, E): of the
+    probs and of the top-1 picks)."""
+    xt = x.reshape(-1, x.shape[-1])
+    logits = (xt @ router.to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)                    # (T, E)
+    idx = torch.topk(probs, cfg.experts_per_token, dim=-1).indices
+    experts = torch.arange(cfg.num_experts, device=x.device)
+    counts = (idx.reshape(-1, 1) == experts).sum(0, keepdim=True)
+    top1 = (idx[:, :1] == experts).sum(0).to(probs.dtype)
+    return probs, counts, torch.stack([probs.sum(0), top1])
+
+
+def _owned(e, keep, split: _Split, E: int):
+    """The assignments to a rank's experts [first, first + local): their
+    index in its stacks (clamped where it is another rank's) and whether
+    each is kept there."""
+    if split.local == E:
+        return e, keep
+    lo = split.first
+    return ((e - lo).clamp(0, split.local - 1),
+            keep & (e >= lo) & (e < lo + split.local))
+
+
+def _moe_dispatch(x, probs, counts, cfg: ModelConfig, C: int, slots: int,
+                  split: _Split):
+    """A shard's routing, its slots after the ``counts`` (n, E) of the
+    shards before it, and its rank's (local experts, slots, d) dispatch
+    buffer: its kept tokens at their slots in the rank's experts, zeros
+    elsewhere. -> (buffer, gates, experts, slots, kept), the last four
+    (T·k,) token-major."""
+    d, k = x.shape[-1], cfg.experts_per_token
+    xt = x.reshape(-1, d)
+    g, e, pos, keep = moe_route(probs, cfg, C, counts[:split.shard].sum(0)
+                                if split.shard else None)
+    el, kept = _owned(e, keep, split, cfg.num_experts)
+    t_flat = torch.arange(xt.shape[0], device=x.device).repeat_interleave(k)
+    contrib = xt[t_flat].masked_fill(~kept[:, None], 0)
+    buf = xt.new_zeros((split.local, slots, d))
+    return (buf.index_put((el, pos), contrib, accumulate=True), g, e, pos,
+            keep)
+
+
+def _moe_experts(buf, wg, wu, wd, cfg: ModelConfig):
     a = act_fn(cfg.act)
-    h = a(torch.bmm(buf, params["wg"].to(x.dtype))) * \
-        torch.bmm(buf, params["wu"].to(x.dtype))
-    h = torch.bmm(h, params["wd"].to(x.dtype))               # (El, C, d)
-    y = h[e_flat, pos] * g_flat[:, None].to(x.dtype)
-    y = y.masked_fill(~keep[:, None], 0)
-    # t_flat repeats each token k times in a row, so the combine is a sum
-    # over k (no scatter-add: deterministic on the card)
-    return y.reshape(T, k, d).sum(1).reshape(B, S, d), aux
+    h = a(torch.bmm(buf, wg.to(buf.dtype))) * torch.bmm(buf, wu.to(buf.dtype))
+    return torch.bmm(h, wd.to(buf.dtype))
+
+
+def _moe_combine(h, g, e, pos, keep, split: _Split, cfg: ModelConfig,
+                 S: int):
+    """Each token's gated outputs from the rank's experts ``h`` (local
+    experts, C', d), summed over its k choices: the assignments are
+    token-major, so the combine is a sum over k (no scatter-add:
+    deterministic on the card)."""
+    el, kept = _owned(e, keep, split, cfg.num_experts)
+    y = h[el, pos] * g[:, None].to(h.dtype)
+    y = y.masked_fill(~kept[:, None], 0)
+    return y.reshape(-1, cfg.experts_per_token, h.shape[-1]).sum(1) \
+        .reshape(-1, S, h.shape[-1])
 
 
 # ---------------------------------------------------------------------------

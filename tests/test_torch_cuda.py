@@ -1192,11 +1192,11 @@ def mesh_moe(mesh) -> tuple[bool, float, int]:
             "moe"].items()}
     params = {k: v[0] for k, v in stacked.items()}
     ran = []
-    moe = L._moe
+    experts = L._moe_experts
 
-    def counting(p, *a, **kw):
-        ran.append(int(p["wg"].shape[0]))
-        return moe(p, *a, **kw)
+    def counting(buf, wg, *a, **kw):
+        ran.append(int(wg.shape[0]))
+        return experts(buf, wg, *a, **kw)
 
     def fwd_bwd(p, xin):
         leaves = [xin.detach().requires_grad_(True)] + \
@@ -1205,14 +1205,14 @@ def mesh_moe(mesh) -> tuple[bool, float, int]:
         loss = (y * like(w, y)).sum() + 3.0 * aux
         return [y, aux, *torch.autograd.grad(loss, leaves)]
 
-    L._moe = counting
+    L._moe_experts = counting
     try:
         got = fwd_bwd(dparams, Layout(mesh, part.activation_spec(B))
                       .distribute(x))
-        experts = ran.pop()
+        local = ran.pop()
         want = fwd_bwd(params, x)
     finally:
-        L._moe = moe
+        L._moe_experts = experts
     ok, worst = True, 0.0
     for g, h in zip(got, want):
         g = (g.full_tensor() if hasattr(g, "full_tensor") else g).detach()
@@ -1221,7 +1221,7 @@ def mesh_moe(mesh) -> tuple[bool, float, int]:
         ok &= bool(torch.allclose(g, h, rtol=TOL["rtol"],
                                   atol=TOL["atol"] * top))
         worst = max(worst, float((g - h).abs().max()) / max(top, 1e-30))
-    return ok, worst, experts
+    return ok, worst, local
 
 
 def test_mesh_moe_on_the_card_matches_unsharded(cuda_mesh):
@@ -1243,19 +1243,23 @@ from repro_torch.launch.mesh import make_host_mesh
 dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                         rank=rank, world_size=4,
                         timeout=timedelta(seconds=300))
-ok, err, experts = mesh_moe(make_host_mesh(1, 4))
+res = {}
+for data, model in ((1, 4), (2, 2)):
+    ok, err, experts = mesh_moe(make_host_mesh(data, model))
+    res[f"{data}x{model}"] = dict(ok=ok, err=err, experts=experts)
 with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
-    json.dump(dict(ok=ok, err=err, experts=experts), f)
+    json.dump(res, f)
 dist.destroy_process_group()
 print("MESH-MOE-OK")
 """
 
 
 def test_moe_on_four_cards(cuda, tmp_path):
-    """``mesh_moe`` on a 1x4 mesh of four cards (NCCL, one process per
-    card): each card runs 16 of the 64 experts, and the combine summed
-    over the four equals one card's unsharded run within rtol 1e-4. Skips
-    with fewer than four cards."""
+    """``mesh_moe`` on a 1x4 and a 2x2 mesh of four cards (NCCL, one
+    process per card): each card runs 16 (1x4) or 32 (2x2: the batch and
+    the capacity slots split over ``data``) of the 64 experts, and the
+    output and grads equal one card's unsharded run within rtol 1e-4.
+    Skips with fewer than four cards."""
     import json
     import socket
     import subprocess
@@ -1284,6 +1288,7 @@ def test_moe_on_four_cards(cuda, tmp_path):
     for r in range(4):
         with open(tmp_path / f"rank{r}.json") as f:
             res = json.load(f)
-        assert res["ok"] and res["experts"] == 16, (r, res)
+        assert res["1x4"]["ok"] and res["1x4"]["experts"] == 16, (r, res)
+        assert res["2x2"]["ok"] and res["2x2"]["experts"] == 32, (r, res)
     print("four-card expert-parallel MoE, largest difference over the "
-          "largest value:", res["err"])
+          "largest value:", {k: v["err"] for k, v in res.items()})

@@ -6,7 +6,8 @@ Cells: reduced qwen2.5-3b and olmoe-1b-7b (2 layers, width / 4, vocab
 512: qwen 4 query heads over 2 KV heads, olmoe 8 experts of 512 x 256,
 top-2) at train (8 x 256 tokens, 4 microbatches), prefill (8 x 256) and
 decode (8 tokens against 256 cache slots) on a 2x4 (data, model) mesh;
-and production olmoe-1b-7b ``decode_32k`` on 16x16. The port's cells run
+and production olmoe-1b-7b ``decode_32k`` and the two MoE configs'
+``prefill_32k`` on 16x16. The port's cells run
 in one subprocess (a process holds one fake process group at a time), the
 reference's ``_jit_cell`` compiles in another with 8 host devices, as
 ``tests/test_dryrun.py`` does.
@@ -28,11 +29,12 @@ N_active are the rest):
    projections' weight grads, taken from the whole query grad and the
    whole attention output, are whole too; decode splits the cache
    timeline instead, so its attention splits over both;
-5. MoE: the experts run over E x C capacity slots (the capacity factor,
-   and decode's floor of min(T, 4k)), not T x k; the tokens are gathered
-   over ``data`` (the routing counts over the whole batch), so each rank
-   runs its E / tp experts over every token, and every rank routes every
-   token.
+5. MoE: the experts run over E x C' capacity slots a microbatch (the
+   capacity factor, decode's floor of min(T, 4k), and C rounded up to C',
+   a multiple of dp), not T x k, split over both axes: each rank runs its
+   E / tp experts over C' / dp of the slots. The router runs over the
+   rank's own tokens: its shard of the batch where the batch splits over
+   ``data``, else every token.
 
 Collectives: the kinds each cell issues (non-zero bytes) against the
 reference's HLO on the same mesh and config. The kinds that differ, GSPMD
@@ -67,6 +69,8 @@ FLOPS_RTOL = 0.02
 PORT_ONLY = {"reduce-scatter"}
 REF_ONLY = {"all-to-all", "collective-permute"}
 TIMEOUT = 300
+PREFILL_MOE = ("olmoe-1b-7b", "moonshot-v1-16b-a3b")
+PEAK_LIMIT = 20e9           # bytes a device: prefill_32k of PREFILL_MOE
 
 
 def narrow(get_config, arch):
@@ -87,13 +91,16 @@ sys.path.insert(0, sys.argv[2])
 from repro_torch.configs import get_config
 from repro_torch.launch.dryrun import measure_cell, run_cell
 from repro_torch.models.config import ShapeConfig
-from test_torch_dryrun_cost import ARCHS, DP, TP, TWO_HEADS, narrow, shapes
+from test_torch_dryrun_cost import (ARCHS, DP, PREFILL_MOE, TP, TWO_HEADS,
+                                    narrow, shapes)
 out = {}
 for arch in ARCHS:
     for shape in shapes(ShapeConfig):
         out[f"{arch}/{shape.kind}"] = measure_cell(
             narrow(get_config, arch), shape, (DP, TP), ("data", "model"))
 out["production"] = run_cell("olmoe-1b-7b", "decode_32k")
+for arch in PREFILL_MOE:
+    out[f"prefill/{arch}"] = run_cell(arch, "prefill_32k")
 out["split"] = run_cell("olmoe-1b-7b", "decode_32k", mesh_split=(4, 64))
 cfg = narrow(get_config, "qwen2.5-3b")
 train, prefill = shapes(ShapeConfig)[:2]
@@ -198,7 +205,9 @@ def expected_flops(cfg, jax_cfg, shape, rec, dp: int, tp: int) -> float:
         per_slot = mult * L * 3 * d * f
         router = mult * L * d * E * tokens
         C = moe_capacity(tokens // M, cfg, cfg.moe_capacity_factor)
-        dev += (per_slot * E * C * M / tp + router
+        slots = -(-C // dp) * dp                             # C'
+        rows = dp if (B // M) % dp == 0 else 1       # the batch's split
+        dev += (per_slot * E * slots * M / (dp * tp) + router / rows
                 - (per_slot * k * tokens + router) / n)
     return dev
 
@@ -286,6 +295,32 @@ def test_production_olmoe_decode_splits_its_experts(cells):
                                                              1024]
     want = expected_flops(cfg, repro.configs.get_config("olmoe-1b-7b"),
                           SHAPES_BY_NAME["decode_32k"], rec, 16, 16)
+    assert abs(pd["flops"] - want) <= FLOPS_RTOL * want, (pd["flops"],
+                                                          want)
+
+
+@pytest.mark.parametrize("arch", PREFILL_MOE)
+def test_production_moe_prefill_keeps_each_ranks_tokens(cells, arch):
+    """16x16 ``prefill_32k`` of the two MoE configs: each rank routes its
+    own 2 of the 32 rows, so no all-gather makes the (32, 32768, d_model)
+    activation whole (every rank gathered it once per layer, for a peak of
+    115.22 and 90.69 GB a device), the peak stays within ``PEAK_LIMIT``,
+    and the FLOPs are the closed form's (the experts over C' / 16 slots a
+    rank)."""
+    import repro.configs
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import SHAPES_BY_NAME
+    rec = cells[0][f"prefill/{arch}"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    cfg, shape = get_config(arch), SHAPES_BY_NAME["prefill_32k"]
+    pd = rec["per_device"]
+    B, S = shape.global_batch, shape.seq_len
+    assert [B, S, cfg.d_model] not in pd["all_gather_shapes"] and \
+        [B * S, cfg.d_model] not in pd["all_gather_shapes"], \
+        pd["all_gather_shapes"]
+    assert pd["peak_hbm_bytes"] <= PEAK_LIMIT, pd["peak_hbm_bytes"]
+    want = expected_flops(cfg, repro.configs.get_config(arch), shape, rec,
+                          16, 16)
     assert abs(pd["flops"] - want) <= FLOPS_RTOL * want, (pd["flops"],
                                                           want)
 

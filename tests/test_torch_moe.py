@@ -224,10 +224,10 @@ def test_decode_step_bf16_matches_reference_but_near_ties(monkeypatch):
     margins: list = []
     route = L.moe_route
 
-    def spy(probs, cfg, C):
+    def spy(probs, cfg, *rest):
         top = probs.topk(cfg.experts_per_token + 1, dim=-1).values
         margins.append(float((top[:, -2] - top[:, -1]).min()))
-        return route(probs, cfg, C)
+        return route(probs, cfg, *rest)
 
     monkeypatch.setattr(L, "moe_route", spy)
     B, steps = 2, 20

@@ -1,22 +1,32 @@
-"""Expert-parallel MoE on 2x2, 1x4 and 4x1 gloo meshes of CPU processes,
-held against the unsharded port and the JAX package.
+"""Expert-parallel MoE on 2x2, 1x4, 4x1 and 2x1x2 gloo meshes of CPU
+processes, held against the unsharded port and the JAX package.
 
 One launch of 4 worker processes (this file, run as a script) takes a
 reduced float32 olmoe-1b-7b (2 layers, width / 4: d_model 512, 4 heads, 8
 experts of 512 x 256, top-2) through each mesh (4x1: a model axis of size
-1, as the card's 1x1 mesh; every rank holds every expert). Each worker
-checks, on every rank:
+1, as the card's 1x1 mesh, every rank holding every expert; 2x1x2: a
+("pod", "data", "model") mesh built with ``init_device_mesh``, as
+``launch.dryrun.fake_mesh`` builds 2x16x16, the batch split pod-major).
+Each worker checks, on every rank, ``moe_apply`` on one block's params at
+the Partitioner's layouts (the expert stacks split over ``model``) in four
+cases (``CASES``): a (4, 8, 512) input at the residual stream's layout at
+the config's capacity factor and at one that drops across the data shards,
+a (3, 8, 512) batch that does not split over the data axes (every rank
+holds it whole), and the ``seq_parallel`` layout (the sequence split over
+``model``):
 
-- ``moe_apply`` on one block's params at the Partitioner's layouts (the
-  expert stacks split over ``model``) and a (4, 8, 512) input at the
-  residual stream's layout: the routing (``e_flat``, ``pos``, ``keep``)
-  identical to the unsharded port's, the output, the aux loss and the
-  grads of the input, the router and the three stacks within rtol 1e-4
-  (atol 1e-5 of the tensor's largest value: float32 sums split over ranks
-  round in another order);
-- inside ``moe_apply`` each rank's stacks hold E / tp experts, and no
-  collective of the forward or backward gathers an expert stack's bytes
-  (``launch.dryrun.CostMode``'s all-gathers);
+- the routing (``e_flat``, ``pos``, ``keep``) of the rows of this rank's
+  data shard identical to the unsharded port's rows there (a rank routes
+  its own tokens only); the output, the aux loss and the grads of the
+  input, the router and the three stacks within rtol 1e-4 (atol 1e-5 of
+  the tensor's largest value: float32 sums split over ranks round in
+  another order);
+- inside ``moe_apply`` each rank's experts run on E / tp stacks over
+  C' / dp of the capacity slots (C' = C rounded up to a multiple of dp), no
+  collective of the forward or backward gathers an expert stack's bytes,
+  and, where the data axes have more than one rank, none gathers an
+  activation of the whole batch (``launch.dryrun.CostMode``'s
+  all-gathers);
 - ``Trainer(mesh=)`` for 2 steps: the losses, held here to the unsharded
   port's Trainer and to the JAX package's (jitted; started from the
   port's initial state, saved as step 0), rtol 1e-4;
@@ -36,8 +46,12 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 ARCH = "olmoe-1b-7b"
-MESHES = ((2, 2), (1, 4), (4, 1))
+MESHES = ((2, 2), (1, 4), (4, 1), (2, 1, 2))
 B, S = 4, 8                 # moe_apply's input
+DROPS = 0.5                 # a capacity factor that drops (C = 8 of 32·2/8)
+# (name, batch, capacity factor (None: the config's), seq_parallel)
+CASES = (("config", B, None, False), ("drops", B, DROPS, False),
+         ("replicated", B - 1, None, False), ("seq_parallel", B, DROPS, True))
 PROMPT, NEW = 4, 4          # generate's prompt and new tokens
 STEPS = 2
 TOL = dict(rtol=1e-4, atol=1e-5)    # atol: of the largest |value|
@@ -59,6 +73,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def make_mesh(shape, device="cpu"):
+    """A (data, model) mesh, or a (pod, data, model) one of three sizes."""
+    if len(shape) == 2:
+        from repro_torch.launch.mesh import make_host_mesh
+        return make_host_mesh(*shape, device=device)
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device, shape,
+                            mesh_dim_names=("pod", "data", "model"))
+
+
 # ----------------------------------------------------------------- workers
 def worker(rank: int, world: int, directory: str, port: int) -> None:
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -68,12 +92,11 @@ def worker(rank: int, world: int, directory: str, port: int) -> None:
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig
-    from repro_torch.launch.dryrun import CostMode
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.dryrun import CostMode, act_layout
     from repro_torch.launch.specs import serve_cache_layouts
     from repro_torch.models import layers as L, transformer as T
     from repro_torch.sharding.dtensor import like
-    from repro_torch.sharding.partition import Layout, Partitioner, shard_tree
+    from repro_torch.sharding.partition import Partitioner, shard_tree
     from repro_torch.train.steps import generate
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -82,13 +105,11 @@ def worker(rank: int, world: int, directory: str, port: int) -> None:
                             timeout=timedelta(seconds=TIMEOUT))
     torch.set_num_threads(1)
     cfg = moe_config(get_config)
-    E = cfg.num_experts
+    E, k, d = cfg.num_experts, cfg.experts_per_token, cfg.d_model
     params = T.init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(5)
-    x = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model))
-                         .astype(np.float32))
-    w = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model))
-                         .astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((B, S, d)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((B, S, d)).astype(np.float32))
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, PROMPT))
                               .astype(np.int32))
     names = ("router", "wg", "wu", "wd")
@@ -102,61 +123,85 @@ def worker(rank: int, world: int, directory: str, port: int) -> None:
                                    atol=TOL["atol"] * top))
 
     seen: dict = {}
-    route, moe = L.moe_route, L._moe
+    route, experts = L.moe_route, L._moe_experts
 
     def recording_route(*a, **kw):
         out = route(*a, **kw)
         seen.setdefault("route", []).append([t.clone() for t in out[1:]])
         return out
 
-    def recording_moe(p, *a, **kw):
-        seen.setdefault("local_experts", []).append(int(p["wg"].shape[0]))
-        return moe(p, *a, **kw)
+    def recording_experts(buf, wg, *a, **kw):
+        seen.setdefault("local_experts", []).append(
+            [int(wg.shape[0]), int(buf.shape[1])])
+        return experts(buf, wg, *a, **kw)
 
-    def moe_fwd_bwd(p, xin):
+    def moe_fwd_bwd(p, xin, wts, factor):
         """(y, aux, grads of x and the four weights) of one MoE call."""
         leaves = [xin.detach().requires_grad_(True)] + \
-            [p[k].detach().requires_grad_(True) for k in names]
+            [p[n].detach().requires_grad_(True) for n in names]
         with torch.enable_grad():
             y, aux = L.moe_apply(dict(zip(names, leaves[1:])), leaves[0],
-                                 cfg)
-            loss = (y * like(w, y)).sum() + 3.0 * aux
+                                 cfg, factor)
+            loss = (y * like(wts, y)).sum() + 3.0 * aux
             grads = torch.autograd.grad(loss, leaves)
         return y, aux, grads
 
-    L.moe_route, L._moe = recording_route, recording_moe
+    L.moe_route, L._moe_experts = recording_route, recording_experts
     try:
-        plain_moe = {k: v[0] for k, v in
+        plain_moe = {n: v[0] for n, v in
                      params["blocks"]["b0_attn"]["moe"].items()}
-        seen.clear()
-        want = moe_fwd_bwd(plain_moe, x)
-        want_route = seen.pop("route")
-        out: dict = {}
-        for dm, mm in MESHES:
-            mesh = make_host_mesh(dm, mm, device="cpu")
-            name = f"{dm}x{mm}"
-            part = Partitioner(cfg, mesh)
-            dparams = shard_tree(params, part.param_shardings(params))
-            dmoe = {k: v.unbind(0)[0] for k, v in
-                    dparams["blocks"]["b0_attn"]["moe"].items()}
-            act = Layout(mesh, part.activation_spec(B))
+        want = {}
+        for case, rows, factor, _ in CASES:
             seen.clear()
-            with CostMode() as cost:
-                got = moe_fwd_bwd(dmoe, act.distribute(x))
-            stack = E * cfg.d_model * cfg.moe_d_ff * 4
-            res = {
-                "route": [all(torch.equal(g, h) for g, h in zip(a, b))
-                          for a, b in zip(seen["route"], want_route)]
-                == [True] * len(want_route) and len(seen["route"]) == 1,
-                "local_experts": list(seen["local_experts"]),
-                "want_local": E // mm,
-                "stack_gathers": [list(s) for s, b in cost.gathers
-                                  if b >= stack // mm and mm > 1],
-                "outputs": [close(whole(g).detach(), h.detach())
-                            for g, h in zip(got[:2], want[:2])],
-                "grads": {n: close(whole(g), h) for n, g, h in zip(
-                    ("x",) + names, got[2], want[2])},
-            }
+            want[case] = (moe_fwd_bwd(plain_moe, x[:rows], w[:rows], factor),
+                          seen.pop("route")[0])
+        out: dict = {}
+        for shape in MESHES:
+            mesh = make_mesh(shape)
+            name = "x".join(map(str, shape))
+            part = Partitioner(cfg, mesh)
+            dp = part.dp_size
+            dparams = shard_tree(params, part.param_shardings(params))
+            dmoe = {n: v.unbind(0)[0] for n, v in
+                    dparams["blocks"]["b0_attn"]["moe"].items()}
+            stack = E * d * cfg.moe_d_ff * 4
+            tp = shape[-1]
+            res: dict = {}
+            for case, rows, factor, seq in CASES:
+                act = act_layout(cfg, mesh, rows, seq)
+                xd = act.distribute(x[:rows].contiguous())
+                split = part.batch_spec(rows)[0] is not None
+                # this rank's data shard: pod-major over the DP axes
+                shard = 0
+                for ax in part.dp:
+                    i = mesh.mesh_dim_names.index(ax)
+                    shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+                n = rows * S * k // (dp if split else 1)
+                lo = shard * n if split else 0
+                C = L.moe_capacity(rows * S, cfg,
+                                   factor or cfg.moe_capacity_factor)
+                whole_batch = {(rows, S, d), (rows * S, d), (rows * S, E),
+                               (rows * S * k,)}
+                seen.clear()
+                with CostMode() as cost:
+                    got = moe_fwd_bwd(dmoe, xd, w[:rows], factor)
+                (y, aux, grads), want_route = want[case]
+                res[case] = {
+                    "route": len(seen["route"]) == 1 and all(
+                        torch.equal(g, h[lo:lo + n]) for g, h in
+                        zip(seen["route"][0], want_route)),
+                    "local_experts": list(seen["local_experts"]),
+                    # E / tp experts over C' / dp slots
+                    "want_local": [E // tp, -(-C // dp)],
+                    "stack_gathers": [list(s) for s, b in cost.gathers
+                                      if b >= stack // tp and tp > 1],
+                    "batch_gathers": [list(s) for s, _ in cost.gathers
+                                      if dp > 1 and s in whole_batch],
+                    "outputs": [close(whole(g).detach(), h.detach())
+                                for g, h in zip(got[:2], (y, aux))],
+                    "grads": {n: close(whole(g), h) for n, g, h in zip(
+                        ("x",) + names, got[2], grads)},
+                }
             # 2 steps of Trainer(mesh=)
             t = Trainer(cfg, TrainerConfig(steps=STEPS, log_every=1),
                         data_cfg=data_config(cfg, DataConfig), device="cpu",
@@ -166,8 +211,9 @@ def worker(rank: int, world: int, directory: str, port: int) -> None:
             finally:
                 t.close()
             # generate on the mesh against the unsharded generate
-            tok = part.tokens_sharding(B)
-            gm = generate(cfg, dparams, tok.distribute(prompt), NEW,
+            act = act_layout(cfg, mesh, B)
+            gm = generate(cfg, dparams,
+                          part.tokens_sharding(B).distribute(prompt), NEW,
                           act_sharding=act, cache_layouts=serve_cache_layouts(
                               cfg, mesh, T.init_cache(cfg, B, PROMPT + NEW,
                                                       device="meta")))
@@ -175,7 +221,7 @@ def worker(rank: int, world: int, directory: str, port: int) -> None:
             res["generate"] = bool(torch.equal(gm, gp))
             out[name] = res
     finally:
-        L.moe_route, L._moe = route, moe
+        L.moe_route, L._moe_experts = route, experts
     with open(os.path.join(directory, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -257,19 +303,48 @@ def test_expert_parallel_moe_on_2x2_1x4_and_4x1_meshes(tmp_path):
     for r in range(4):
         with open(tmp_path / f"rank{r}.json") as f:
             res = json.load(f)
+        assert sorted(res) == sorted("x".join(map(str, m)) for m in MESHES)
         for mesh, got in res.items():
             where = f"rank {r} {mesh}"
-            assert got["route"], where
-            # each rank ran its own E / tp experts, once per call
-            assert got["local_experts"] == [got["want_local"]], (where, got)
-            assert got["stack_gathers"] == [], (where, got["stack_gathers"])
-            assert all(got["outputs"]), (where, got["outputs"])
-            assert all(got["grads"].values()), (where, got["grads"])
+            for case, *_ in CASES:
+                c = got[case]
+                assert c["route"], (where, case)
+                # each rank ran its own E / tp experts over its C' / dp
+                # slots, once per call
+                assert c["local_experts"] == [c["want_local"]], \
+                    (where, case, c)
+                assert c["stack_gathers"] == [], (where, case, c)
+                assert c["batch_gathers"] == [], (where, case, c)
+                assert all(c["outputs"]), (where, case, c["outputs"])
+                assert all(c["grads"].values()), (where, case, c["grads"])
             np.testing.assert_allclose(got["losses"], plain, rtol=1e-4,
                                        err_msg=where)
             np.testing.assert_allclose(got["losses"], ref_losses, rtol=1e-4,
                                        err_msg=where)
             assert got["generate"], where
+
+
+def test_the_dropping_case_drops_across_the_data_shards():
+    """``CASES``' dropping factor on the test's input: the unsharded
+    routing drops assignments, and an expert's slots run out in the second
+    half of the batch (shard 1 of the 2x2's two) only because of the
+    first half's assignments: a shard that counted its own tokens alone
+    would keep them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L, transformer as T
+    cfg = moe_config(get_config)
+    p = T.init_params(cfg, seed=0, device="cpu")["blocks"]["b0_attn"][
+        "moe"]
+    x = np.random.default_rng(5).standard_normal((B, S, cfg.d_model))
+    probs = torch.softmax(torch.from_numpy(x.astype(np.float32)).reshape(
+        -1, cfg.d_model) @ p["router"][0], dim=-1)
+    C = L.moe_capacity(B * S, cfg, DROPS)
+    _, _, _, keep = L.moe_route(probs, cfg, C)
+    half = B * S // 2
+    _, _, _, alone = L.moe_route(probs[half:], cfg, C)
+    assert not keep.all()
+    assert bool((alone & ~keep[half * cfg.experts_per_token:]).any())
 
 
 if __name__ == "__main__":
