@@ -165,9 +165,13 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                difference of the last prompt logits from 4e's reported;
                (b) full-width, full-depth qwen2.5-3b, initialised on the
                card as in 4e (c), distributed to the serve layouts and
-               served with the same gates against 4e (c). Swap-in wall,
-               prefill ms, decode ms per step beside 4e's, tokens/s, peak
-               memory. Nothing is written. (A 1x1 mesh splits nothing and
+               served with the same gates against 4e (c). Both run
+               attention split over ``model`` (``layers._attention_local``)
+               and the lookup at the table's own layout. Swap-in wall,
+               prefill ms, decode ms per step beside 4e's and beside the
+               runs before this split (``MESH_SERVE_BEFORE``), tokens/s,
+               peak memory.
+               Nothing is written. (A 1x1 mesh splits nothing and
                NCCL refuses two ranks on one card: the split timeline is
                held on gloo ranks in the tests and on four cards.)
      4j. expert-parallel MoE on a 1-rank NCCL group and
@@ -178,7 +182,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                greedy tokens equal to 4g's, decode vs prefill within 0.05;
                the last prompt logits' largest difference from 4g's,
                prefill ms, decode ms per step beside 4g's and peak memory
-               reported beside the earlier slices' (``MOE_MESH_BEFORE``).
+               reported beside the earlier slices' (``MOE_MESH_BEFORE``,
+               ``MESH_SERVE_BEFORE``).
                (b) olmoe-1b-7b at full width cut to 8 of its 16 layers (its
                train state reckoned on ``meta`` and printed beside full
                depth's 69.19 GB): two Trainer steps unsharded, then two
@@ -217,12 +222,18 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                ``peak_hbm_bytes`` against the step's own peak on the card
                (``max_memory_allocated()`` of the warm step, less what was
                allocated beside its arguments) within 10%. The same
-               process, with two more, runs the production MoE cells on
+               process, with three more, runs the production MoE cells on
                the 16x16 mesh (``PRODUCTION_MOE``: olmoe-1b-7b and
                moonshot-v1-16b-a3b at ``prefill_32k`` and ``train_4k``)
-               and the run prints each one's peak, FLOPs and collective
-               bytes by kind; a ``prefill_32k`` peak above an 80 GB card
-               fails the run.
+               and the GQA cells whose KV heads do not split 16 ways
+               (``PRODUCTION_GQA``: qwen3-32b ``prefill_32k`` and
+               ``decode_32k``, gemma2-9b ``prefill_32k``, qwen2.5-3b
+               ``train_4k``; attention and the lookup split over
+               ``model``), and the run prints each one's peak, FLOPs and
+               collective bytes by kind, the GQA cells beside the
+               parent's; a ``prefill_32k`` peak above an 80 GB card, an
+               all-gather of a whole (V, d) embedding table, or a decode
+               step that all-gathers 64 MB or more fails the run.
   5. chaos — the port's seeded chaos campaign with restores on the card, for
                the JAX package's gate seeds (0, 42): zero invariant
                violations, >= 200 faults fired, every required kind class.
@@ -300,12 +311,35 @@ MOE_MESH_BEFORE = {"4j (a)": dict(prefill_ms=(174.59, 218.46),
                                   decode_median_ms=(110.08, 120.42),
                                   peak_device_bytes=14_264_452_608),
                    "4j (b)": dict(peak_device_bytes=44_767_974_912)}
+# 4i's and 4j (a)'s serving on the 1x1 mesh before attention and the
+# lookup split over `model` (PERF.md: the three card runs before; ms)
+MESH_SERVE_BEFORE = {
+    "4i (a)": dict(prefill_ms=(297.70, 457.88),
+                   decode_median_ms=(32.30, 52.05)),
+    "4i (b)": dict(prefill_ms=(483.67, 767.14),
+                   decode_median_ms=(162.12, 278.92)),
+    "4j (a)": dict(prefill_ms=(282.41, 350.15),
+                   decode_median_ms=(204.90, 222.25))}
 MOE_PEAK_SLACK = 0.01              # 4j (b)'s mesh peak over the earlier one
 # the dry run's production MoE cells on 16x16, longest first
 PRODUCTION_MOE = (("moonshot-v1-16b-a3b", "train_4k"),
                   ("olmoe-1b-7b", "train_4k"),
                   ("moonshot-v1-16b-a3b", "prefill_32k"),
                   ("olmoe-1b-7b", "prefill_32k"))
+# the dry run's GQA cells on 16x16 whose KV heads do not split 16 ways,
+# longest first, and their numbers a device before the split (PERF.md):
+# peak bytes, FLOPs, collective bytes by kind
+PRODUCTION_GQA = (("qwen2.5-3b", "train_4k"), ("qwen3-32b", "prefill_32k"),
+                  ("gemma2-9b", "prefill_32k"), ("qwen3-32b", "decode_32k"))
+PRODUCTION_GQA_BEFORE = {
+    "qwen2.5-3b train_4k": (13.62e9, 6.294e14, dict(
+        all_gather=550.04e9, all_reduce=49.76e9, reduce_scatter=33.75e9)),
+    "qwen3-32b prefill_32k": (41.19e9, 5.113e15, dict(
+        all_gather=303.56e9, all_reduce=42.95e9, reduce_scatter=32.21e9)),
+    "gemma2-9b prefill_32k": (20.15e9, 2.076e15, dict(
+        all_gather=267.14e9, all_reduce=39.46e9, reduce_scatter=22.20e9)),
+    "qwen3-32b decode_32k": (8.06e9, 5.12e10, dict(all_gather=1.567e9))}
+DECODE_GATHER_LIMIT = 64e6         # a decode step's all-gather bytes a device
 CARD_BYTES = 80e9                  # an H100's device memory
 CHECKPOINT_LAYERS = 1
 PROBE_BYTES = 512 << 20
@@ -2930,6 +2964,14 @@ def held_to_unsharded(tag: str, got: dict, want: dict, mesh_out: dict,
         f"{plain_out['prefill_s'] * 1e3:.2f} ms, "
         f"{mesh_out['tokens_per_s']:.1f} vs {plain_out['tokens_per_s']:.1f}"
         f" tokens/s")
+    was = MESH_SERVE_BEFORE.get(tag)
+    if was:
+        log(f"{tag} beside the runs before attention and the lookup "
+            f"split over model: prefill {mesh_out['prefill_s'] * 1e3:.2f} "
+            f"ms (then {was['prefill_ms'][0]}–{was['prefill_ms'][1]}), "
+            f"decode median {mesh_out['decode_median_ms']:.2f} ms per step "
+            f"(then {was['decode_median_ms'][0]}–"
+            f"{was['decode_median_ms'][1]})")
     return dict(logits_max_abs_diff=diff, logits_rel_diff=rel)
 
 
@@ -3494,9 +3536,10 @@ def mesh_writers(cfg, root: str, tally: WriteTally,
 def dryrun_cells(path: str) -> None:
     """Run ``measure_cell`` on a 1x1 fake mesh for 4h (a)'s and 4j (b)'s
     train steps (their configs, depths, batch and one microbatch), and the
-    ``PRODUCTION_MOE`` cells on 16x16 in two processes beside them (one
-    fake process group a process); the records go to ``path``. The run
-    starts it as a process of its own (``meta`` tensors, no card)."""
+    ``PRODUCTION_MOE`` and ``PRODUCTION_GQA`` cells on 16x16 in three
+    processes beside them (one fake process group a process); the records
+    go to ``path``. The run starts it as a process of its own (``meta``
+    tensors, no card)."""
     sys.path.insert(0, SRC)
     import multiprocessing
 
@@ -3506,12 +3549,13 @@ def dryrun_cells(path: str) -> None:
     from repro_torch.models.config import ShapeConfig
     shape = ShapeConfig("train_smoke", TRAIN_SHAPE[1], TRAIN_SHAPE[0],
                         "train")
-    out: dict = {"production": {}}
+    out: dict = {"production": {}, "production_gqa": {}}
+    todo = PRODUCTION_MOE + PRODUCTION_GQA
     with multiprocessing.get_context("spawn").Pool(
-            2, initializer=torch.set_num_threads, initargs=(1,),
+            3, initializer=torch.set_num_threads, initargs=(1,),
             maxtasksperchild=1) as pool:
         cells = pool.imap(_run_cell_args, [(arch, name, False, True)
-                                           for arch, name in PRODUCTION_MOE])
+                                           for arch, name in todo])
         for phase, cfg in (("4h (a)", train_config()),
                            ("4j (b)", moe_train_config())):
             t0 = time.perf_counter()
@@ -3519,8 +3563,10 @@ def dryrun_cells(path: str) -> None:
                                microbatches=1)
             rec["wall_s"] = time.perf_counter() - t0
             out[phase] = rec
-        for (arch, name), rec in zip(PRODUCTION_MOE, cells):
-            out["production"][f"{arch} {name}"] = rec
+        for (arch, name), rec in zip(todo, cells):
+            key = "production" if (arch, name) in PRODUCTION_MOE \
+                else "production_gqa"
+            out[key][f"{arch} {name}"] = rec
     with open(path, "w") as f:
         json.dump(out, f)
 
@@ -3569,6 +3615,7 @@ def dryrun_vs_card(proc, path: str, measured: dict) -> dict:
             fail(f"the dry run's peak for {phase} is {ratio:.4f} of the "
                  f"card's")
     out["production"] = production_moe(recs["production"])
+    out["production_gqa"] = production_gqa(recs["production_gqa"])
     return out
 
 
@@ -3598,6 +3645,54 @@ def production_moe(recs: dict) -> dict:
                 pd["peak_hbm_bytes"] > CARD_BYTES:
             fail(f"the dry run's peak for {cell} on 16x16, "
                  f"{pd['peak_hbm_bytes']} B, is over an 80 GB card")
+    return out
+
+
+def production_gqa(recs: dict) -> dict:
+    """The ``PRODUCTION_GQA`` cells' dry-run records on 16x16: peak, FLOPs
+    and collective bytes by kind, per device, printed beside the parent's
+    (``PRODUCTION_GQA_BEFORE``); a cell that failed, a ``prefill_32k``
+    peak above ``CARD_BYTES``, an all-gather of the whole (V, d) embedding
+    table, or a decode step that all-gathers ``DECODE_GATHER_LIMIT`` bytes
+    or more fails the run."""
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+    out = {}
+    for cell, rec in recs.items():
+        if rec["status"] != "ok":
+            fail(f"dry run of {cell} on 16x16: {rec.get('error')}")
+        pd = rec["per_device"]
+        coll = {k: v for k, v in pd["collective_bytes"].items() if v}
+        peak0, flops0, coll0 = PRODUCTION_GQA_BEFORE[cell]
+        cfg = get_config(rec["arch"])
+        table = [s for s in pd["all_gather_shapes"] if len(s) == 2
+                 and s[0] * s[1] == cfg.vocab_size * cfg.d_model]
+        out[cell] = dict(peak_hbm_bytes=pd["peak_hbm_bytes"],
+                         argument_bytes=pd["argument_bytes"],
+                         temp_bytes=pd["temp_bytes"], flops=pd["flops"],
+                         collective_bytes=coll,
+                         all_gather_shapes=pd["all_gather_shapes"],
+                         step_s=rec["step_s"],
+                         before=dict(peak_hbm_bytes=peak0, flops=flops0,
+                                     collective_bytes=coll0))
+        log(f"dry run {cell} on 16x16 (per device, no card): peak "
+            f"{pd['peak_hbm_bytes']} B (before {peak0:.4g}), "
+            f"{pd['flops']:.4e} FLOPs (before {flops0:.4g}), collective "
+            f"bytes " + ", ".join(f"{k} {v}" for k, v in coll.items())
+            + " (before " + ", ".join(f"{k.replace('_', '-')} {v:.4g}"
+                                      for k, v in coll0.items())
+            + f"); {rec['step_s']:.1f} s on meta")
+        if table:
+            fail(f"the dry run of {cell} all-gathers the whole embedding "
+                 f"table: {table}")
+        if rec["mode"] == "prefill" and pd["peak_hbm_bytes"] > CARD_BYTES:
+            fail(f"the dry run's peak for {cell} on 16x16, "
+                 f"{pd['peak_hbm_bytes']} B, is over an 80 GB card")
+        if rec["mode"] == "decode" and \
+                coll.get("all-gather", 0) >= DECODE_GATHER_LIMIT:
+            fail(f"the dry run's decode step of {cell} all-gathers "
+                 f"{coll['all-gather']} B a device (limit "
+                 f"{DECODE_GATHER_LIMIT:.0f})")
     return out
 
 

@@ -26,15 +26,21 @@ Under a mesh the params and activations are DTensors and the projections,
 norms and MLPs follow DTensor's sharding propagation (PyTorch 2.11 and
 2.13 alike). The rest runs on each rank's local blocks under ``local_map``
 (``sharding.dtensor.on_local``), where a release lacks a strategy or the
-work is independent per batch row, head or channel: the attention and
-mLSTM cores per (batch row, head) (``_heads_local``: GQA's reshape and the
-einsums' flattening of a split head; ``merge_heads`` in training), the
+work is independent per batch row, head or channel: the attention core
+per (batch row, query head) or, where the query heads do not divide the
+``model`` axis, per (batch row, query row) (``_attention_local``: each
+``model`` rank its share, the KV heads its query heads read), the mLSTM
+core per (batch row, head) (``_heads_local``; ``merge_heads`` in
+training), the
 sLSTM loop over time (per batch row, the recurrent weights whole), the MoE
 router, dispatch, experts and combine (each rank's own tokens, their
 slots counted over the whole batch, its own experts over its share of the
 slots; ``moe_apply``),
 ``log_sigmoid`` (``pointwise``) and the RG-LRU scan (``kernels.rglru``).
-Rope's angles join as a replicated DTensor (``like``).
+Rope's angles join as a replicated DTensor (``like``). A block's output
+joins the residual stream at the stream's layout (``_residual``: a
+projection's pending sum reduced, forward and backward, as Megatron's
+all-reduce).
 """
 
 from __future__ import annotations
@@ -47,8 +53,8 @@ import torch.nn.functional as F
 
 from ..kernels.rglru import rglru_scan
 from ..sharding.dtensor import (is_dtensor, keep_dims, like, mapped,
-                                on_local, pointwise, replicate, summed_over,
-                                write_)
+                                model_axis, on_local, placed, pointwise,
+                                replicate, summed_over, write_)
 from .config import ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -208,19 +214,22 @@ ATTN_CHUNK = 1024  # query-chunk size for memory-bounded attention
 
 
 def chunked_attention(q, k, v, cfg: ModelConfig, window: int,
-                      chunk: int = ATTN_CHUNK):
-    """Causal attention with O(S·chunk) live logits: query chunks in turn."""
-    B, S, H, D = q.shape
-    if S <= chunk:
-        return attention_scores(q, k, v,
-                                causal_mask(S, S, 0, window, q.device), cfg)
-    pad = (-S) % chunk
+                      chunk: int = ATTN_CHUNK, offset: int = 0):
+    """Causal attention with O(Sq·chunk) live logits: query chunks in turn.
+    q holds the Sq query rows from position ``offset`` on, k/v the whole
+    sequence from position 0 (``offset`` 0 and Sq = Skv: every row)."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if Sq <= chunk:
+        return attention_scores(
+            q, k, v, causal_mask(Sq, Skv, offset, window, q.device), cfg)
+    pad = (-Sq) % chunk
     if pad:
         q = F.pad(q, (0, 0, 0, 0, 0, pad))
     outs = [attention_scores(q[:, off:off + chunk], k, v,
-                             causal_mask(chunk, S, off, window, q.device), cfg)
-            for off in range(0, S + pad, chunk)]
-    return torch.cat(outs, dim=1)[:, :S]
+                             causal_mask(chunk, Skv, offset + off, window,
+                                         q.device), cfg)
+            for off in range(0, Sq + pad, chunk)]
+    return torch.cat(outs, dim=1)[:, :Sq]
 
 
 def split_heads(t, heads: int):
@@ -256,9 +265,10 @@ def _heads_local(fn, q, *rest):
     (B,S,H,D) and each of ``rest`` (B,S',H',...) with its heads on dim 2.
     Under a mesh it runs on local blocks (``local_map``), every input split
     as q over batch and heads — heads split only where all inputs split
-    them alike, else whole — the rest made whole: the GQA reshape and the
-    einsums' flattening of a split head dim have no DTensor strategy in
-    every release. The output takes q's layout."""
+    them alike, else whole — the rest made whole: the einsums' flattening
+    of a split head dim has no DTensor strategy in every release. The
+    output takes q's layout. (The mLSTM core; attention splits its own
+    way, ``_attention_local``.)"""
     if not is_dtensor(q):
         return fn(q, *rest)
     lay = keep_dims(q, (0, 2))
@@ -267,19 +277,130 @@ def _heads_local(fn, q, *rest):
     return on_local(fn, (q, *rest), (lay,) * (1 + len(rest)), lay)
 
 
+def _residual(x, y):
+    """``x + y``, a block's output ``y`` first taken to the residual
+    stream's layout under a mesh (a projection's pending sum reduced, rows
+    gathered), so the residual and its grad keep that layout (Megatron's
+    all-reduce). DTensor would otherwise reduce-scatter the sum over d,
+    and the matmuls after it, or their backward, meet a residual (or grad)
+    split over d, which they multiply with a whole weight where that is
+    the smaller operand."""
+    if is_dtensor(y):
+        # under local_map the grad of y is taken to that layout too (a
+        # pending sum reduced); a bare redistribute would leave it pending
+        lay = tuple(x.placements)
+        y = on_local(lambda t: t, (y,), (lay,), lay)
+    return x + y
+
+
+def _by_rows(h, cfg: ModelConfig) -> bool:
+    """Whether attention under a mesh splits its query ROWS over ``model``
+    (the query heads do not divide it: recurrentgemma's 10 over 16), not
+    its heads."""
+    ax = model_axis(h)
+    return ax is not None and cfg.num_heads % ax[1] != 0
+
+
+def _linear(t, w, b=None):
+    return t @ w if b is None else t @ w + b
+
+
+def _rows_linear(t, w, b, lay):
+    """``_linear`` on each rank's rows: ``t`` at ``lay`` (its leading dims
+    split, its last whole), ``w`` and ``b`` made whole. Their grads are
+    pending sums over ``lay``'s splits."""
+    ts = (t, w) if b is None else (t, w, b)
+    n = len(ts) - 1
+    return on_local(_linear, ts, (lay,) + (replicate(w),) * n, lay,
+                    (lay,) + (summed_over(lay),) * n)
+
+
+def _attention_local(q, k, v, cfg: ModelConfig, window: int):
+    """``chunked_attention`` of q (B,S,H,D) over k/v (B,S,KV,D). Under a
+    mesh each ``model`` rank computes its share on local blocks, the batch
+    split as q's:
+
+    - the query heads divide the model axis: each rank keeps its H/tp
+      query heads (``wq``'s column split leaves them so) and the KV heads
+      they read, query head h reading KV head h // (H/KV). K/V split on
+      whole heads alike are taken as they lie; otherwise they are made
+      whole over ``model`` and each rank slices its KV heads (Megatron's
+      KV replication; H/tp must divide H/KV or be a multiple of it). Their
+      grads are pending sums over the ranks that share a KV head;
+    - otherwise (``_by_rows``) q arrives split over its sequence, and each
+      rank attends its S/tp query rows, the causal and sliding-window
+      masks at their global positions, against whole K/V.
+
+    The output takes q's layout. A layout that cannot be taken raises."""
+    ax = model_axis(q)
+    if ax is None:
+        if is_dtensor(q):
+            raise NotImplementedError("attention on a mesh without a "
+                                      "'model' axis")
+        return chunked_attention(q, k, v, cfg, window)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    i, tp, r = ax
+    S, H, KV = q.shape[1], q.shape[2], k.shape[2]
+    rows = keep_dims(q, (0,))                   # the batch's split, if any
+    whole = placed(rows, i, Replicate())
+    kv_grad = placed(rows, i, Partial())
+    if H % tp == 0:
+        Hl, G = H // tp, H // KV
+        lay = placed(rows, i, Shard(2))
+        if keep_dims(k, (0, 2)) == lay == keep_dims(v, (0, 2)):
+            return on_local(lambda *ts: chunked_attention(*ts, cfg, window),
+                            (q, k, v), (lay,) * 3, lay)
+        if Hl % G and G % Hl:
+            raise NotImplementedError(
+                f"{H} query heads over {tp} ranks read KV heads of two "
+                f"groups of {G}")
+        lo, n = r * Hl // G, max(Hl // G, 1)
+
+        def fn(q, k, v):
+            return chunked_attention(q, k[:, :, lo:lo + n],
+                                     v[:, :, lo:lo + n], cfg, window)
+    else:
+        if S % tp:
+            raise NotImplementedError(
+                f"{H} query heads do not split over {tp} ranks, nor "
+                f"{S} query rows")
+        lay = placed(rows, i, Shard(1))
+        off = r * S // tp
+
+        def fn(q, k, v):
+            return chunked_attention(q, k, v, cfg, window, offset=off)
+    return on_local(fn, (q, k, v), (lay, whole, whole), lay,
+                    (lay, kv_grad, kv_grad))
+
+
 def attention_apply(params, x, cfg: ModelConfig, *, positions, local: bool,
                     cache=None):
     """Pre-norm attention block with residual -> (x, cache). cache:
-    dict(k, v, pos) or None; given one, S == 1 (decode)."""
+    dict(k, v, pos) or None; given one, S == 1 (decode).
+
+    Under a mesh, without a cache, the residual stream's sequence is made
+    whole over ``model`` first (Megatron's sequence-parallel gather; a
+    no-op without ``seq_parallel``) and the projections split as their
+    weights do, the query heads over ``model``; where those do not divide
+    it (``_by_rows``) each rank projects its own S/tp rows instead, the
+    weights whole, attends them (``_attention_local``) and projects them
+    out. The block's output meets the residual stream at its layout
+    (``_residual``)."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    B, S, _ = h.shape
-    q = h @ params["wq"].to(h.dtype)
-    k = h @ params["wk"].to(h.dtype)
-    v = h @ params["wv"].to(h.dtype)
-    if cfg.qkv_bias:
-        q = q + params["bq"].to(h.dtype)
-        k = k + params["bk"].to(h.dtype)
-        v = v + params["bv"].to(h.dtype)
+    by_rows = cache is None and _by_rows(h, cfg)
+    lay = None
+    if by_rows:
+        from torch.distributed.tensor import Shard
+        lay = placed(keep_dims(h, (0,)), model_axis(h)[0], Shard(1))
+    elif cache is None and is_dtensor(h):
+        h = h.redistribute(h.device_mesh, keep_dims(h, (0,)))
+
+    def proj(w, b):
+        w = params[w].to(h.dtype)
+        b = params[b].to(h.dtype) if cfg.qkv_bias else None
+        return _rows_linear(h, w, b, lay) if by_rows else _linear(h, w, b)
+
+    q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
     q = split_heads(q, cfg.num_heads)
     k = split_heads(k, cfg.num_kv_heads)
     v = split_heads(v, cfg.num_kv_heads)
@@ -290,14 +411,14 @@ def attention_apply(params, x, cfg: ModelConfig, *, positions, local: bool,
     k = rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if local else 0
     if cache is None:
-        out = _heads_local(lambda q, k, v: chunked_attention(q, k, v, cfg,
-                                                             window),
-                           q, k, v)
+        out = _attention_local(q, k, v, cfg, window)
     else:
         out = _attend_cached(q, k, v, positions, cache, cfg, window)
     # a bf16 cache under a float32 residual stream (gemma) promotes here
-    out = merge_heads(out).to(x.dtype) @ params["wo"].to(x.dtype)
-    return x + out, cache
+    out = merge_heads(out).to(x.dtype)
+    wo = params["wo"].to(x.dtype)
+    out = _rows_linear(out, wo, None, lay) if by_rows else out @ wo
+    return _residual(x, out), cache
 
 
 def _kv_step(q, k, v, positions, ck, cv, pos, cfg: ModelConfig, window: int,
@@ -667,7 +788,7 @@ def transformer_block_apply(params, x, cfg: ModelConfig, *, positions,
     else:
         y = mlp_apply(params["mlp"], h, cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + y, new_cache, aux
+    return _residual(x, y), new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -721,9 +842,9 @@ def rglru_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
                          (lay, lay), (cache["h"],), lay, lay)
     gate = F.silu(h @ params["wgate"].to(h.dtype))
     y = (hh.to(x.dtype) * gate) @ params["wout"].to(x.dtype)
-    x = x + y
+    x = _residual(x, y)
     h2 = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    x = x + mlp_apply(params["mlp"], h2, cfg)
+    x = _residual(x, mlp_apply(params["mlp"], h2, cfg))
     return x, cache
 
 

@@ -27,7 +27,8 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..sharding.dtensor import (constrain, gathered, keep_dims, on_local,
+from ..sharding.dtensor import (constrain, gathered, is_dtensor,
+                                keep_dims, model_axis, on_local, placed,
                                 replicate, summed_over, zeros)
 from . import layers as L
 from .config import (ATTN, ATTN_LOCAL, ATTENTION_KINDS, MLSTM, RGLRU, SLSTM,
@@ -172,21 +173,53 @@ def _unstack(tree, n: int) -> list:
 
 
 def _lookup(table, tokens):
-    """``table[tokens]``. Under a mesh each rank looks up its rows of the
-    batch in a whole copy of the table (the gather's backward, an
-    index_put, has no DTensor strategy in every release), so the table's
-    grad is a pending sum over the batch's splits."""
+    """``table[tokens]``. Under a mesh it runs on local blocks at the
+    table's own layout (the gather's backward, an index_put, has no
+    DTensor strategy in every release), each rank on its rows of the
+    batch:
+
+    - the vocab split over ``model``: each rank gathers the ids in its
+      rows [lo, hi) of the table and writes zeros for the rest; the output
+      is a pending sum over ``model`` (one rank gives each token its
+      value, the others exact zeros) and the table's grad stays split as
+      the table, a pending sum over the batch's splits;
+    - d split over ``model`` (a vocab that does not divide): each rank
+      looks up its columns, the output split over d;
+    - otherwise (the table whole over ``model``) the whole rows."""
+    ax = model_axis(table)
+    if ax is None:
+        if is_dtensor(table):
+            raise NotImplementedError("a lookup on a mesh without a "
+                                      "'model' axis")
+        return table[tokens.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    i, tp, r = ax
     rows = keep_dims(tokens, (0,))
-    return on_local(lambda t, ids: t[ids.long()], (table, tokens),
-                    (replicate(table), rows), rows,
-                    rows and (summed_over(rows), rows))
+    own = placed(replicate(table), i, table.placements[i])
+    grad = placed(summed_over(rows), i, table.placements[i])
+    if table.placements[i] == Shard(0):
+        lo = r * -(-table.shape[0] // tp)        # torch.chunk's blocks
+
+        def fn(t, ids):
+            local = ids.long() - lo
+            hit = (local >= 0) & (local < t.shape[0])
+            got = t[local.clamp(0, t.shape[0] - 1)]
+            return torch.where(hit[..., None], got, torch.zeros(
+                (), dtype=t.dtype, device=t.device))
+        out = placed(rows, i, Partial())
+    else:
+        def fn(t, ids):
+            return t[ids.long()]
+        out = placed(rows, i, Shard(2) if table.placements[i] == Shard(1)
+                     else Replicate())
+    return on_local(fn, (table, tokens), (own, rows), out, (grad, rows))
 
 
 def _embed(params, cfg: ModelConfig, tokens, frontend_embeds=None):
     """Token embeddings, with the projected ``frontend_embeds`` (B, F,
     frontend_dim) as a prefix for the vlm and audio families (the
     frontends themselves are stubs, as in the reference)."""
-    x = _lookup(params["embed"].to(L.dtype_of(cfg)), tokens)
+    x = _lookup(gathered(params["embed"]).to(L.dtype_of(cfg)), tokens)
     if cfg.family in ("vlm", "audio") and cfg.frontend and \
             frontend_embeds is not None:
         proj = frontend_embeds.to(x.dtype) @ \

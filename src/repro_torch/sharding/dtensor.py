@@ -81,6 +81,25 @@ def keep_dims(t, dims: tuple[int, ...]) -> tuple | None:
                  for p in t.placements)
 
 
+def model_axis(t) -> tuple[int, int, int] | None:
+    """(mesh dim, its size, this rank's index along it) of the ``model``
+    axis of DTensor ``t``'s mesh; None for a plain tensor or a mesh
+    without one."""
+    if not is_dtensor(t):
+        return None
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names:
+        return None
+    i = names.index("model")
+    return i, mesh.size(i), mesh.get_local_rank(i)
+
+
+def placed(placements: tuple, i: int, p) -> tuple:
+    """``placements`` with mesh dim ``i``'s entry replaced by ``p``."""
+    return tuple(p if j == i else q for j, q in enumerate(placements))
+
+
 def mapped(placements: tuple | None, dims: dict, shape=None
            ) -> tuple | None:
     """``placements`` of one tensor carried to another, of ``shape``, whose

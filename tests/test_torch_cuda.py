@@ -1292,3 +1292,128 @@ def test_moe_on_four_cards(cuda, tmp_path):
         assert res["2x2"]["ok"] and res["2x2"]["experts"] == 32, (r, res)
     print("four-card expert-parallel MoE, largest difference over the "
           "largest value:", {k: v["err"] for k, v in res.items()})
+
+
+def mesh_attention(mesh, device: str = "cuda") -> tuple[bool, float]:
+    """``tests/test_torch_attn_mesh.py``'s reduced float32 qwen2.5-3b (4
+    query heads over 2 KV heads) on ``mesh``, its ranks on the card: the
+    forward logits, the loss and every grad, and the prefill's logits,
+    against the unsharded port on the CPU (rtol 1e-4, atol 1e-5 of each
+    tensor's largest value; the loss rtol 1e-5), with no all-gather of
+    the whole embedding table. Returns (all held, the largest difference
+    over the largest value). (``device="cpu"`` rehearses it on gloo
+    ranks.)"""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_attn_mesh import B, MESH_TOL, batch_arrays, config
+    from repro_torch.configs import get_config
+    from repro_torch.core.serialization import tree_leaves_with_path
+    from repro_torch.launch.dryrun import CostMode, act_layout
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.partition import Partitioner, shard_tree
+    from repro_torch.train.steps import (_unflat, make_loss_fn,
+                                         make_prefill_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = config(get_config, "qwen2.5-3b")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in batch_arrays(cfg).items()}
+
+    def run(p, b, act=None):
+        flat = tree_leaves_with_path(p)
+        leaves = [t.detach().requires_grad_(True) for _, t in flat]
+        loss, _ = make_loss_fn(cfg, act)(
+            _unflat(zip((k for k, _ in flat), leaves)), b)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            logits = T.forward(p, cfg, b["tokens"], act_sharding=act)[0]
+        return [loss, logits, make_prefill_step(cfg, act)(p, b), *grads]
+
+    want = run(params, batch)
+    part = Partitioner(cfg, mesh)
+    dparams = shard_tree(_unflat((k, v.to(device)) for k, v in
+                                 tree_leaves_with_path(params)),
+                         part.param_shardings(params))
+    tok = part.tokens_sharding(B)
+    with CostMode() as cost:
+        got = run(dparams, {k: tok.distribute(v.to(device))
+                            for k, v in batch.items()},
+                  act_layout(cfg, mesh, B))
+    table = cfg.vocab_size * cfg.d_model
+    ok = not [s for s, _ in cost.gathers
+              if len(s) == 2 and s[0] * s[1] == table]
+    worst = 0.0
+    for i, (g, h) in enumerate(zip(got, want)):
+        g = (g.full_tensor() if hasattr(g, "full_tensor") else g).detach()
+        g, h = g.cpu(), h.detach()
+        top = float(h.abs().max())
+        rtol = 1e-5 if i == 0 else MESH_TOL["rtol"]
+        ok &= bool(torch.allclose(g, h, rtol=rtol,
+                                  atol=MESH_TOL["atol"] * top))
+        worst = max(worst, float((g - h).abs().max()) / max(top, 1e-30))
+    return ok, worst
+
+
+def test_mesh_attention_on_the_card_matches_cpu(cuda_mesh):
+    """``mesh_attention`` on a 1x1 CUDA mesh: attention split over a model
+    axis of size 1 and the lookup at the table's layout, as the smoke's
+    phases 4h (a), 4i and 4j run them."""
+    ok, worst = mesh_attention(cuda_mesh)
+    assert ok, worst
+
+
+MESH_ATTENTION = r"""
+import json, os, sys
+from datetime import timedelta
+import torch.distributed as dist
+rank, out, port = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sys.path.insert(0, os.path.dirname(os.path.abspath(sys.argv[4])))
+from test_torch_cuda import mesh_attention
+from repro_torch.launch.mesh import make_host_mesh
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=4,
+                        timeout=timedelta(seconds=300))
+ok, err = mesh_attention(make_host_mesh(1, 4))
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(dict(ok=ok, err=err), f)
+dist.destroy_process_group()
+print("MESH-ATTENTION-OK")
+"""
+
+
+def test_mesh_attention_on_four_cards(cuda, tmp_path):
+    """``mesh_attention`` on a 1x4 mesh of four cards (NCCL, one process
+    per card): one query head a card, two cards to a KV head, the vocab
+    split four ways; equal to the CPU's unsharded run. Skips with fewer
+    than four cards."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (one process per card)")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_ATTENTION, str(r), str(tmp_path),
+         str(port), __file__], env=dict(
+             os.environ, OMP_NUM_THREADS="1",
+             PYTHONPATH=os.path.join(root, "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0] * 4, \
+        [log[-3000:] for log in logs]
+    for r in range(4):
+        with open(tmp_path / f"rank{r}.json") as f:
+            res = json.load(f)
+        assert res["ok"], (r, res)
+    print("four-card attention and lookup split over model, largest "
+          "difference over the largest value:", res["err"])

@@ -6,35 +6,37 @@ Cells: reduced qwen2.5-3b and olmoe-1b-7b (2 layers, width / 4, vocab
 512: qwen 4 query heads over 2 KV heads, olmoe 8 experts of 512 x 256,
 top-2) at train (8 x 256 tokens, 4 microbatches), prefill (8 x 256) and
 decode (8 tokens against 256 cache slots) on a 2x4 (data, model) mesh;
-and production olmoe-1b-7b ``decode_32k`` and the two MoE configs'
-``prefill_32k`` on 16x16. The port's cells run
-in one subprocess (a process holds one fake process group at a time), the
-reference's ``_jit_cell`` compiles in another with 8 host devices, as
-``tests/test_dryrun.py`` does.
+and production olmoe-1b-7b ``decode_32k``, the two MoE configs'
+``prefill_32k`` and the GQA cells of ``PRODUCTION_GQA`` on 16x16. The
+port's cells run in one subprocess (a process holds one fake process
+group at a time), the reference's ``_jit_cell`` compiles in another with
+8 host devices, as ``tests/test_dryrun.py`` does.
 
 FLOPs. ``analytic_terms`` is the closed form the roofline uses: 6 (train)
 or 2 FLOPs per active parameter per token, and causal attention over half
 the context, split evenly over the mesh. The port's step differs from it
-in five named ways, each applied as a closed form below; what is left must
+in four named ways, each applied as a closed form below; what is left must
 agree within ``FLOPS_RTOL`` (2%: norms, biases and the routers' share of
 N_active are the rest):
 
 1. an untied embedding is a lookup (no FLOPs);
 2. the prefill unembeds the last position only;
 3. attention computes every (query, key) pair of its chunk against the
-   whole sequence and masks, so a causal S x S costs twice the half;
-4. where the KV heads do not split over ``model`` (qwen's 2 over 4) the
-   attention core runs with its heads whole (``layers._heads_local``):
-   split over the data ranks only, and in training the query and output
-   projections' weight grads, taken from the whole query grad and the
-   whole attention output, are whole too; decode splits the cache
-   timeline instead, so its attention splits over both;
-5. MoE: the experts run over E x C' capacity slots a microbatch (the
+   whole sequence and masks, so a causal S x S costs twice the half, and
+   a local layer S keys a query, not its window's (gemma2's 4096 of
+   32768);
+4. MoE: the experts run over E x C' capacity slots a microbatch (the
    capacity factor, decode's floor of min(T, 4k), and C rounded up to C',
    a multiple of dp), not T x k, split over both axes: each rank runs its
    E / tp experts over C' / dp of the slots. The router runs over the
    rank's own tokens: its shard of the batch where the batch splits over
    ``data``, else every token.
+
+The attention core splits over both axes as the closed form has it, GQA
+heads whose KV heads do not split over ``model`` (qwen's 2 over 4)
+included: each rank attends its H/tp query heads against the KV heads
+they read (``layers._attention_local``); decode splits the cache timeline
+instead.
 
 Collectives: the kinds each cell issues (non-zero bytes) against the
 reference's HLO on the same mesh and config. The kinds that differ, GSPMD
@@ -46,9 +48,9 @@ against DTensor:
   partitioner lowers the same as an all-reduce and a dynamic slice;
 - ``all-to-all`` (the reference only): GSPMD moves a split from one dim
   to another (heads to batch around attention) with an all-to-all; the
-  port makes a dim whole and splits the other (``split_heads``,
-  ``_heads_local``), and on a CPU mesh DTensor itself falls back to an
-  all-gather and a chunk;
+  port makes K/V whole over ``model`` (``split_heads``,
+  ``layers._attention_local``), and on a CPU mesh DTensor itself falls
+  back to an all-gather and a chunk;
 - ``collective-permute`` (the reference only): GSPMD's halo and
   device-order shifts; DTensor has no permute in its redistributions.
 """
@@ -71,6 +73,10 @@ REF_ONLY = {"all-to-all", "collective-permute"}
 TIMEOUT = 300
 PREFILL_MOE = ("olmoe-1b-7b", "moonshot-v1-16b-a3b")
 PEAK_LIMIT = 20e9           # bytes a device: prefill_32k of PREFILL_MOE
+# (arch, shape) of the GQA cells whose KV heads do not split 16 ways
+PRODUCTION_GQA = (("qwen3-32b", "prefill_32k"), ("gemma2-9b", "prefill_32k"),
+                  ("qwen3-32b", "decode_32k"))
+DECODE_GATHER_LIMIT = 64e6  # all-gather bytes a device of one decode step
 
 
 def narrow(get_config, arch):
@@ -91,8 +97,8 @@ sys.path.insert(0, sys.argv[2])
 from repro_torch.configs import get_config
 from repro_torch.launch.dryrun import measure_cell, run_cell
 from repro_torch.models.config import ShapeConfig
-from test_torch_dryrun_cost import (ARCHS, DP, PREFILL_MOE, TP, TWO_HEADS,
-                                    narrow, shapes)
+from test_torch_dryrun_cost import (ARCHS, DP, PREFILL_MOE, PRODUCTION_GQA,
+                                    TP, TWO_HEADS, narrow, shapes)
 out = {}
 for arch in ARCHS:
     for shape in shapes(ShapeConfig):
@@ -101,6 +107,8 @@ for arch in ARCHS:
 out["production"] = run_cell("olmoe-1b-7b", "decode_32k")
 for arch in PREFILL_MOE:
     out[f"prefill/{arch}"] = run_cell(arch, "prefill_32k")
+for arch, shape in PRODUCTION_GQA:
+    out[f"gqa/{arch}/{shape}"] = run_cell(arch, shape)
 out["split"] = run_cell("olmoe-1b-7b", "decode_32k", mesh_split=(4, 64))
 cfg = narrow(get_config, "qwen2.5-3b")
 train, prefill = shapes(ShapeConfig)[:2]
@@ -167,7 +175,7 @@ def cells(tmp_path_factory):
 
 def expected_flops(cfg, jax_cfg, shape, rec, dp: int, tp: int) -> float:
     """Per-device FLOPs of the port's step: ``analytic_terms`` of the cell
-    with the module docstring's corrections 1-5."""
+    with the module docstring's corrections 1-4."""
     import benchmarks.roofline as roofline
     import repro.configs
     mode = shape.kind
@@ -192,13 +200,14 @@ def expected_flops(cfg, jax_cfg, shape, rec, dp: int, tp: int) -> float:
     if mode == "prefill":                                    # 2
         matmul -= 2 * V * d * (tokens - B)
     if mode != "decode":                                     # 3
-        attn *= 2
+        per = cfg.num_layers // len(cfg.block_pattern)
+        n_g, n_l = (cfg.block_pattern.count(kind) * per
+                    for kind in ("attn", "attn_local"))
+        if n_g + n_l:
+            ctx_l = min(cfg.sliding_window or S, S)
+            attn *= (n_g + n_l) * S / (n_g * S / 2 + n_l * ctx_l)
     dev = matmul / n + attn / n
-    if cfg.num_kv_heads % tp and mode != "decode":           # 4
-        dev += attn / dp - attn / n
-        if mode == "train":
-            dev += 2 * 2 * d * cfg.q_dim * tokens * (1 / dp - 1 / n)
-    if cfg.is_moe:                                           # 5
+    if cfg.is_moe:                                           # 4
         from repro_torch.models.layers import moe_capacity
         L, f = cfg.num_layers, cfg.moe_d_ff
         E, k = cfg.num_experts, cfg.experts_per_token
@@ -323,6 +332,41 @@ def test_production_moe_prefill_keeps_each_ranks_tokens(cells, arch):
                           16, 16)
     assert abs(pd["flops"] - want) <= FLOPS_RTOL * want, (pd["flops"],
                                                           want)
+
+
+@pytest.mark.parametrize("arch,shape", PRODUCTION_GQA)
+def test_production_gqa_cells_split_attention(cells, arch, shape):
+    """16x16 cells whose KV heads do not split 16 ways (qwen3-32b's 8,
+    gemma2-9b's 8): the attention core splits over ``model`` as well as
+    ``data`` (each rank's 4 or 1 query heads, their KV heads sliced from a
+    whole K/V), so the FLOPs are the closed form's (the parent ran every
+    head of its data shard on each of the 16 model ranks: 5.113e15 and
+    2.076e15 a device for the two prefills) and the prefill's peak stays
+    within ``PEAK_LIMIT`` (its (2, 64, 1024, 32768) float32 logits of one
+    query chunk held 17.2 GB: a peak of 41.19 GB); the lookup reads the
+    table at its vocab split, so no all-gather is of the whole (V, d)
+    table, and a decode step gathers under ``DECODE_GATHER_LIMIT`` (the
+    table's 1.56 GB before)."""
+    import repro.configs
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import SHAPES_BY_NAME
+    rec = cells[0][f"gqa/{arch}/{shape}"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    cfg, sc = get_config(arch), SHAPES_BY_NAME[shape]
+    pd = rec["per_device"]
+    table = cfg.vocab_size * cfg.d_model
+    assert not [s for s in pd["all_gather_shapes"]
+                if len(s) == 2 and s[0] * s[1] == table], \
+        pd["all_gather_shapes"]
+    want = expected_flops(cfg, repro.configs.get_config(arch), sc, rec,
+                          16, 16)
+    assert abs(pd["flops"] - want) <= FLOPS_RTOL * want, (pd["flops"],
+                                                          want)
+    if sc.kind == "decode":
+        gathered = pd["collective_bytes"]["all-gather"]
+        assert gathered < DECODE_GATHER_LIMIT, gathered
+    else:
+        assert pd["peak_hbm_bytes"] <= PEAK_LIMIT, pd["peak_hbm_bytes"]
 
 
 def test_slstm_on_meta_counts_the_loops_flops():
