@@ -215,10 +215,30 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                the same digests. Save wall, blocking seconds, the
                ``wait_snapshotted()`` wait, each writer's wall and bytes,
                aggregate GB/s, restore walls and read stalls are printed.
+     4l. the slice's path, the xLSTM blocks split over ``model``:
+               xlstm-350m at full width and depth (24 layers, bf16, weights
+               of seed 0; nothing written), unsharded and then on a 1-rank
+               NCCL group and ``make_host_mesh(1, 1)``, where the mLSTM core
+               (``layers._mlstm_block``) and the sLSTM gates and recurrence
+               (``layers._slstm_local``) run on each rank's share of the
+               heads (value columns) and channels: (a) one prefill of 8 x
+               255 seeded tokens, the greedy tokens equal to the unsharded
+               run's; (b) 4e's requests prefilled and decoded by
+               ``generate`` through ``serve_cache_layouts`` caches, the
+               greedy tokens equal to the unsharded run's; (c) two
+               ``Trainer`` steps unsharded and two on the mesh from the
+               same seed, each loss within 1e-5 relative, and a warm third
+               step on the mesh whose peak the dry run predicts (below).
+               Prefill ms, decode ms per step and step walls beside the
+               unsharded ones. A 1x1 mesh splits nothing (its collectives
+               are skipped); the split is held on gloo ranks
+               (tests/test_torch_xlstm_mesh.py) and four cards
+               (``test_mesh_xlstm_on_four_cards``). No kernel of the five
+               launches in 4l.
   dry run vs card — ``launch.dryrun.measure_cell`` on a 1x1 fake mesh for
-               4h (a)'s and 4j (b)'s train steps (their configs and depths,
-               8 x 255 tokens, one microbatch; a process of its own on
-               ``meta``, started after phase 1): each predicted
+               4h (a)'s, 4j (b)'s and 4l's train steps (their configs
+               and depths, 8 x 255 tokens, one microbatch; a process of its
+               own on ``meta``, started after phase 1): each predicted
                ``peak_hbm_bytes`` against the step's own peak on the card
                (``max_memory_allocated()`` of the warm step, less what was
                allocated beside its arguments) within 10%. The same
@@ -229,11 +249,16 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                (``PRODUCTION_GQA``: qwen3-32b ``prefill_32k`` and
                ``decode_32k``, gemma2-9b ``prefill_32k``, qwen2.5-3b
                ``train_4k``; attention and the lookup split over
+               ``model``) and xlstm-350m ``prefill_32k``
+               (``PRODUCTION_XLSTM``: the xLSTM blocks split over
                ``model``), and the run prints each one's peak, FLOPs and
-               collective bytes by kind, the GQA cells beside the
-               parent's; a ``prefill_32k`` peak above an 80 GB card, an
-               all-gather of a whole (V, d) embedding table, or a decode
-               step that all-gathers 64 MB or more fails the run.
+               collective bytes by kind, the GQA and xLSTM cells beside
+               the parent's; a ``prefill_32k`` peak above an 80 GB card, an
+               all-gather of a whole (V, d) embedding table, a decode step
+               that all-gathers 64 MB or more, or an xLSTM cell over 5e12
+               FLOPs or a 2 GB peak a device, or that all-gathers a whole
+               sLSTM gate weight or v, q or k with every head, fails the
+               run.
   5. chaos — the port's seeded chaos campaign with restores on the card, for
                the JAX package's gate seeds (0, 42): zero invariant
                violations, >= 200 faults fired, every required kind class.
@@ -340,6 +365,15 @@ PRODUCTION_GQA_BEFORE = {
         all_gather=267.14e9, all_reduce=39.46e9, reduce_scatter=22.20e9)),
     "qwen3-32b decode_32k": (8.06e9, 5.12e10, dict(all_gather=1.567e9))}
 DECODE_GATHER_LIMIT = 64e6         # a decode step's all-gather bytes a device
+# the dry run's xLSTM cell on 16x16 and its numbers a device before the
+# xLSTM blocks split over `model` (PERF.md): peak bytes, FLOPs, collective
+# bytes by kind; its gates after the split
+PRODUCTION_XLSTM = (("xlstm-350m", "prefill_32k"),)
+PRODUCTION_XLSTM_BEFORE = {
+    "xlstm-350m prefill_32k": (5_994_148_244, 2.0414529e13, dict(
+        all_gather=704_643_072, all_reduce=16_265_510_912))}
+XLSTM_FLOPS_LIMIT = 5.0e12
+XLSTM_PEAK_LIMIT = 2.0e9
 CARD_BYTES = 80e9                  # an H100's device memory
 CHECKPOINT_LAYERS = 1
 PROBE_BYTES = 512 << 20
@@ -3375,6 +3409,137 @@ def moe_train_config():
     return get_config(MOE_ARCH).replace(num_layers=MOE_TRAIN_LAYERS)
 
 
+# ------------------------------------------------------------ phase 4l
+def xlstm_mesh(cfg=None, device: str = "cuda") -> dict:
+    """Phase 4l, the xLSTM blocks split over ``model``: xlstm-350m at full
+    width and depth (``cfg``: the CLI's default arch, weights of seed 0 in
+    its bf16), unsharded and then on a 1-rank NCCL group and
+    ``make_host_mesh(1, 1)`` (nothing is written): (a) one prefill of 8 x
+    255 seeded tokens (``TRAIN_SHAPE``'s), the last position's greedy
+    tokens equal to the unsharded run's; (b) ``SERVE_SHAPE``'s requests
+    through ``serve_requests`` (prefill, then ``generate`` through the
+    mLSTM and sLSTM caches at ``serve_cache_layouts``), the greedy tokens
+    equal to the unsharded run's; (c) two ``Trainer`` steps from seed 0
+    unsharded, then two on the mesh, each loss within 1e-5 relative, and a
+    warm third step on the mesh whose peak the dry run predicts. On the
+    mesh the mLSTM core and the sLSTM recurrence run ``_mlstm_block`` and
+    ``_slstm_local`` on local blocks (a model axis of one rank exchanges
+    nothing). Prefill ms, decode ms per step and step walls are printed
+    beside the unsharded ones. (A narrow ``cfg`` and ``device="cpu"``
+    rehearse it on a gloo group.)"""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L, transformer as T
+    from repro_torch.sharding.partition import Layout, Partitioner, \
+        shard_tree
+    from repro_torch.train.steps import make_prefill_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = cfg or get_config(XLSTM_ARCH)
+    cuda = device == "cuda"
+    B, S = TRAIN_SHAPE[:2]
+    log(f"4l {cfg.name}: {cfg.num_layers} of 24 layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} mLSTM heads, {cfg.dtype}; prefill "
+        f"{B} x {S} tokens, {SERVE_SHAPE[0]} requests served, 2 Trainer "
+        f"steps of {B} x {S} tokens, unsharded and on a 1x1 mesh")
+    params = T.cast_params(T.init_params(cfg, seed=0, device=device),
+                           L.dtype_of(cfg))
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int32, device=device)
+    out: dict = {}
+
+    def prefill(p, toks, act=None) -> tuple[torch.Tensor, float]:
+        sync(toks.device)
+        t0 = time.perf_counter()
+        logits = make_prefill_step(cfg, act_sharding=act)(
+            p, {"tokens": toks})
+        sync(toks.device)
+        wall = time.perf_counter() - t0
+        logits = logits.full_tensor() if act is not None else logits
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"4l: non-finite prefill logits ({'mesh' if act else ''})")
+        return logits.float().cpu(), wall
+
+    def two_steps(tag: str, mesh=None) -> dict:
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, TrainerConfig(steps=2, ckpt_every=0,
+                                             log_every=1, seed=0),
+                          device=device, mesh=mesh)
+        try:
+            res = trainer.run()
+        finally:
+            trainer.close()
+        finite_losses(res, [0, 1])
+        run = dict(steps=log_steps(tag, res, B * S),
+                   peak_device_bytes=torch.cuda.max_memory_allocated()
+                   if cuda else None)
+        if cuda and mesh is not None:
+            run["memory"] = step_peak(trainer, res["state"], 2, "4l (c)")
+        del res
+        return run
+
+    plain_logits, plain_s = prefill(params, tokens)
+    kept: dict = {}
+    plain = serve_requests(cfg, params, device, phase="4l (b) unsharded",
+                           gate=False, keep=kept)
+    out["unsharded"] = two_steps("4l (c) unsharded")
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device=device)
+        part = Partitioner(cfg, mesh)
+        dparams = shard_tree(params, part.param_shardings(params))
+        act = Layout(mesh, part.activation_spec(B))
+        logits, mesh_s = prefill(dparams, part.tokens_sharding(B)
+                                 .distribute(tokens), act)
+        if not bool(torch.equal(logits.argmax(-1), plain_logits.argmax(-1))):
+            fail("4l (a): the prefill's greedy tokens on the mesh differ "
+                 "from the unsharded run's")
+        diff = float((logits - plain_logits).abs().max())
+        out["prefill"] = dict(mesh_ms=mesh_s * 1e3, unsharded_ms=plain_s
+                              * 1e3, logits_max_abs_diff=diff)
+        log(f"4l (a) prefill of {B} x {S} tokens: {mesh_s * 1e3:.2f} ms on "
+            f"the mesh vs {plain_s * 1e3:.2f} ms unsharded (each model's "
+            f"first call); greedy tokens equal, last logits within "
+            f"{diff:.3e}")
+        mine: dict = {}
+        out["serve"] = serve_requests(cfg, dparams, device, phase="4l (b)",
+                                      gate=False, mesh=mesh, keep=mine)
+        out["serve"].update(held_to_unsharded("4l (b)", mine, kept,
+                                              out["serve"], plain,
+                                              against="4l (b) unsharded"))
+        out["serve_unsharded"] = plain
+        del dparams
+        out["mesh"] = two_steps("4l (c) 1x1 mesh", mesh)
+    finally:
+        dist.destroy_process_group()
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    diffs = []
+    for m, u in zip(out["mesh"]["steps"], out["unsharded"]["steps"]):
+        rel = abs(m["loss"] - u["loss"]) / abs(u["loss"])
+        diffs.append(rel)
+        if rel > 1e-5:
+            fail(f"4l (c) step {m['step']} loss {m['loss']} on the mesh is "
+                 f"{rel:.2e} from the unsharded {u['loss']} (limit 1e-5 "
+                 f"relative)")
+    out["loss_rel_diff"] = diffs
+    log(f"4l (c) losses within {max(diffs):.2e} relative of the unsharded "
+        f"run's (limit 1e-5); step walls on the mesh "
+        + " / ".join(f"{m['seconds']:.3f}" for m in out["mesh"]["steps"])
+        + " s vs unsharded "
+        + " / ".join(f"{m['seconds']:.3f}" for m in out["unsharded"]["steps"])
+        + f" s; peak device memory {out['mesh']['peak_device_bytes']} B vs "
+        f"{out['unsharded']['peak_device_bytes']} B")
+    return out
+
+
 # ------------------------------------------------------------ phase 4k
 def mesh_writers(cfg, root: str, tally: WriteTally,
                  device: str = "cuda") -> dict:
@@ -3534,37 +3699,41 @@ def mesh_writers(cfg, root: str, tally: WriteTally,
 
 # ------------------------------------------------- the dry run vs the card
 def dryrun_cells(path: str) -> None:
-    """Run ``measure_cell`` on a 1x1 fake mesh for 4h (a)'s and 4j (b)'s
-    train steps (their configs, depths, batch and one microbatch), and the
-    ``PRODUCTION_MOE`` and ``PRODUCTION_GQA`` cells on 16x16 in three
-    processes beside them (one fake process group a process); the records
-    go to ``path``. The run starts it as a process of its own (``meta``
-    tensors, no card)."""
+    """Run ``measure_cell`` on a 1x1 fake mesh for 4h (a)'s, 4j (b)'s and
+    4l's train steps (their configs, depths, batch and one microbatch), and
+    the ``PRODUCTION_MOE``, ``PRODUCTION_GQA`` and ``PRODUCTION_XLSTM``
+    cells on 16x16 in three processes beside them (one fake process group
+    a process); the records go to ``path``. The run starts it as a process
+    of its own (``meta`` tensors, no card)."""
     sys.path.insert(0, SRC)
     import multiprocessing
 
     import torch
     torch.set_num_threads(2)
+    from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import _run_cell_args, measure_cell
     from repro_torch.models.config import ShapeConfig
     shape = ShapeConfig("train_smoke", TRAIN_SHAPE[1], TRAIN_SHAPE[0],
                         "train")
-    out: dict = {"production": {}, "production_gqa": {}}
-    todo = PRODUCTION_MOE + PRODUCTION_GQA
+    out: dict = {"production": {}, "production_gqa": {},
+                 "production_xlstm": {}}
+    todo = PRODUCTION_MOE + PRODUCTION_GQA + PRODUCTION_XLSTM
     with multiprocessing.get_context("spawn").Pool(
             3, initializer=torch.set_num_threads, initargs=(1,),
             maxtasksperchild=1) as pool:
         cells = pool.imap(_run_cell_args, [(arch, name, False, True)
                                            for arch, name in todo])
         for phase, cfg in (("4h (a)", train_config()),
-                           ("4j (b)", moe_train_config())):
+                           ("4j (b)", moe_train_config()),
+                           ("4l", get_config(XLSTM_ARCH))):
             t0 = time.perf_counter()
             rec = measure_cell(cfg, shape, (1, 1), ("data", "model"),
                                microbatches=1)
             rec["wall_s"] = time.perf_counter() - t0
             out[phase] = rec
         for (arch, name), rec in zip(todo, cells):
-            key = "production" if (arch, name) in PRODUCTION_MOE \
+            key = "production" if (arch, name) in PRODUCTION_MOE else \
+                "production_xlstm" if (arch, name) in PRODUCTION_XLSTM \
                 else "production_gqa"
             out[key][f"{arch} {name}"] = rec
     with open(path, "w") as f:
@@ -3582,7 +3751,8 @@ def dryrun_vs_card(proc, path: str, measured: dict) -> dict:
             proc.kill()
             proc.wait()
     if proc.returncode != 0 or not os.path.exists(path):
-        fail(f"the dry run of 4h (a) and 4j (b) exited {proc.returncode}")
+        fail(f"the dry run of 4h (a), 4j (b) and 4l exited "
+             f"{proc.returncode}")
     with open(path) as f:
         recs = json.load(f)
     out = {}
@@ -3616,6 +3786,7 @@ def dryrun_vs_card(proc, path: str, measured: dict) -> dict:
                  f"card's")
     out["production"] = production_moe(recs["production"])
     out["production_gqa"] = production_gqa(recs["production_gqa"])
+    out["production_xlstm"] = production_xlstm(recs["production_xlstm"])
     return out
 
 
@@ -3693,6 +3864,61 @@ def production_gqa(recs: dict) -> dict:
             fail(f"the dry run's decode step of {cell} all-gathers "
                  f"{coll['all-gather']} B a device (limit "
                  f"{DECODE_GATHER_LIMIT:.0f})")
+    return out
+
+
+def production_xlstm(recs: dict) -> dict:
+    """The ``PRODUCTION_XLSTM`` cell's dry-run record on 16x16: peak, FLOPs
+    and collective bytes by kind, per device, printed beside the parent's
+    (``PRODUCTION_XLSTM_BEFORE``). A failed cell, FLOPs over
+    ``XLSTM_FLOPS_LIMIT``, a peak over ``XLSTM_PEAK_LIMIT``, an all-gather
+    of a whole (d, d) or (d, 4d) sLSTM gate weight, or all-gathers of v's
+    size with every head beyond u1's one an mLSTM block (v, q or k made
+    whole) fails the run."""
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import SHAPES_BY_NAME
+    out = {}
+    for cell, rec in recs.items():
+        if rec["status"] != "ok":
+            fail(f"dry run of {cell} on 16x16: {rec.get('error')}")
+        pd = rec["per_device"]
+        coll = {k: v for k, v in pd["collective_bytes"].items() if v}
+        peak0, flops0, coll0 = PRODUCTION_XLSTM_BEFORE[cell]
+        cfg, sc = get_config(rec["arch"]), SHAPES_BY_NAME[rec["shape"]]
+        d = cfg.d_model
+        weights = [s for s in pd["all_gather_shapes"]
+                   if len(s) == 2 and s[0] * s[1] in (d * d, 4 * d * d)]
+        v = sc.global_batch // 16 * sc.seq_len * int(cfg.proj_factor * d)
+        whole_v = sum(n for k, n in pd["all_gather_counts"].items()
+                      if math.prod(int(x) for x in k.split("x")) == v)
+        mlstm = cfg.num_layers // len(cfg.block_pattern)
+        out[cell] = dict(peak_hbm_bytes=pd["peak_hbm_bytes"],
+                         argument_bytes=pd["argument_bytes"],
+                         temp_bytes=pd["temp_bytes"], flops=pd["flops"],
+                         collective_bytes=coll,
+                         all_gather_counts=pd["all_gather_counts"],
+                         step_s=rec["step_s"],
+                         before=dict(peak_hbm_bytes=peak0, flops=flops0,
+                                     collective_bytes=coll0))
+        log(f"dry run {cell} on 16x16 (per device, no card): peak "
+            f"{pd['peak_hbm_bytes']} B (before {peak0}), "
+            f"{pd['flops']:.4e} FLOPs (before {flops0:.4e}), collective "
+            f"bytes " + ", ".join(f"{k} {v}" for k, v in coll.items())
+            + " (before " + ", ".join(f"{k.replace('_', '-')} {v}"
+                                      for k, v in coll0.items())
+            + f"); all-gathers of v's size with every head {whole_v} (u1's,"
+            f" one for each of {mlstm} mLSTM blocks); {rec['step_s']:.1f} s "
+            f"on meta")
+        if pd["flops"] > XLSTM_FLOPS_LIMIT or \
+                pd["peak_hbm_bytes"] > XLSTM_PEAK_LIMIT:
+            fail(f"the dry run of {cell} on 16x16: {pd['flops']:.4e} FLOPs "
+                 f"(limit {XLSTM_FLOPS_LIMIT:.1e}), peak "
+                 f"{pd['peak_hbm_bytes']} B (limit {XLSTM_PEAK_LIMIT:.1e})")
+        if weights or whole_v != mlstm:
+            fail(f"the dry run of {cell} all-gathers whole gate weights "
+                 f"{weights} or {whole_v} tensors of v's size with every "
+                 f"head (u1's: {mlstm})")
     return out
 
 
@@ -3907,6 +4133,10 @@ def main(argv=None) -> int:
     writers = mesh_writers(mesh_writers_config(groups),
                            os.path.join(HERE, "build", "smoke_mw_mesh"), tally)
     log(f"4k: {time.perf_counter() - t0:.1f} s")
+    # phase 4l: the xLSTM blocks split over model, on a 1x1 mesh
+    t0 = time.perf_counter()
+    xlstm_on_mesh = xlstm_mesh()
+    log(f"4l: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     training["cpu_vs_card"] = [cpu_vs_card(cfg, tokens, label) for
                                label, cfg, tokens in card_vs_cpu_cases()]
@@ -3927,7 +4157,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     dry_vs_card = dryrun_vs_card(dry, dry_path, {
         "4h (a)": mesh["memory"],
-        "4j (b)": moe_mesh["train"]["mesh"]["memory"]})
+        "4j (b)": moe_mesh["train"]["mesh"]["memory"],
+        "4l": xlstm_on_mesh["mesh"]["memory"]})
     log(f"dry run vs card: {time.perf_counter() - t0:.1f} s waited")
 
     launches = {name: main_path["launches"].get(name, 0)
@@ -3955,6 +4186,7 @@ def main(argv=None) -> int:
                            training=training, serving=serving, xlstm=xlstm,
                            moe=moe, moe_mesh=moe_mesh, mesh=mesh,
                            serve_mesh=serve_on_mesh, mesh_writers=writers,
+                           xlstm_mesh=xlstm_on_mesh,
                            dryrun_vs_card=dry_vs_card,
                            chaos=chaos_run), f,
                       indent=1)

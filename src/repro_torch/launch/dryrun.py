@@ -21,7 +21,10 @@ allocated and no device is needed. Per device it reports
                         (all-gather, all-reduce, reduce-scatter,
                         all-to-all, collective-permute) and a ``count``,
                         seen by ``torch.distributed.tensor.debug.
-                        CommDebugMode``
+                        CommDebugMode``; ``all_gather_shapes`` and
+                        ``all_gather_counts`` the all-gathers' result
+                        shapes (gathered along dim 0, as the collective
+                        returns them) and how many of each
     output_bytes      — the step's returned local bytes (each storage once)
     alias_bytes       — those of them that are argument storage: the state
                         AdamW updates in place (train), the decode caches
@@ -58,6 +61,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
@@ -377,7 +381,9 @@ def measure_cell(cfg, shape, sizes: tuple[int, ...],
                 per_device.update(
                     memory,
                     flops=cost.flops, collective_bytes=cost.collective_bytes,
-                    all_gather_shapes=sorted({s for s, _ in cost.gathers}))
+                    all_gather_shapes=sorted({s for s, _ in cost.gathers}),
+                    all_gather_counts=dict(collections.Counter(
+                        "x".join(map(str, s)) for s, _ in cost.gathers)))
         rec["per_device"] = per_device
         rec["model"] = {"params": cfg.param_count(),
                         "active_params": cfg.active_param_count()}

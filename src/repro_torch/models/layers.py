@@ -30,10 +30,11 @@ work is independent per batch row, head or channel: the attention core
 per (batch row, query head) or, where the query heads do not divide the
 ``model`` axis, per (batch row, query row) (``_attention_local``: each
 ``model`` rank its share, the KV heads its query heads read), the mLSTM
-core per (batch row, head) (``_heads_local``; ``merge_heads`` in
-training), the
-sLSTM loop over time (per batch row, the recurrent weights whole), the MoE
-router, dispatch, experts and combine (each rank's own tokens, their
+core (``_mlstm_block``: each ``model`` rank its heads, or its columns of
+a head's value dim where more ranks than heads share the axis), the sLSTM
+loop over time (``_slstm_local``: each ``model`` rank its d/tp channels
+of the gates and the state, h gathered over ``model`` at each step), the
+MoE router, dispatch, experts and combine (each rank's own tokens, their
 slots counted over the whole batch, its own experts over its share of the
 slots; ``moe_apply``),
 ``log_sigmoid`` (``pointwise``) and the RG-LRU scan (``kernels.rglru``).
@@ -52,7 +53,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..kernels.rglru import rglru_scan
-from ..sharding.dtensor import (is_dtensor, keep_dims, like, mapped,
+from ..sharding.dtensor import (axis_group, gather_last, group_blocks,
+                                is_dtensor, keep_dims, like, mapped,
                                 model_axis, on_local, placed, pointwise,
                                 replicate, summed_over, write_)
 from .config import ModelConfig
@@ -258,23 +260,6 @@ def merge_heads(t):
     lay = keep_dims(t, (0, 1, 2))
     return on_local(lambda u: u.reshape(*u.shape[:-2], -1), (t,), (lay,),
                     mapped(lay, {0: 0, 1: 1, 2: 2}))
-
-
-def _heads_local(fn, q, *rest):
-    """``fn(q, *rest)`` for work independent per (batch row, head): q
-    (B,S,H,D) and each of ``rest`` (B,S',H',...) with its heads on dim 2.
-    Under a mesh it runs on local blocks (``local_map``), every input split
-    as q over batch and heads — heads split only where all inputs split
-    them alike, else whole — the rest made whole: the einsums' flattening
-    of a split head dim has no DTensor strategy in every release. The
-    output takes q's layout. (The mLSTM core; attention splits its own
-    way, ``_attention_local``.)"""
-    if not is_dtensor(q):
-        return fn(q, *rest)
-    lay = keep_dims(q, (0, 2))
-    if any(keep_dims(t, (0, 2)) != lay for t in rest):
-        lay = keep_dims(q, (0,))
-    return on_local(fn, (q, *rest), (lay,) * (1 + len(rest)), lay)
 
 
 def _residual(x, y):
@@ -896,17 +881,18 @@ def mlstm_init(gen, cfg: ModelConfig, *, device="cpu"):
     }
 
 
-def _mlstm_qkv(params, h, cfg: ModelConfig):
+def _mlstm_qkv(params, h, cfg: ModelConfig, heads: bool = True):
     """h: (B,S,up) -> q, v (B,S,H,hd) in h's dtype; k (B,S,H,hd) float32;
-    log input gate and log-sigmoid forget gate (B,S,H) float32. The
-    reference divides k by a numpy float64 scalar, which JAX does not treat
-    as weak: k is promoted to float32 even for a bf16 model, and so here."""
+    log input gate and log-sigmoid forget gate (B,S,H) float32; with
+    ``heads=False`` q, k and v stay (B,S,up). The reference divides k by a
+    numpy float64 scalar, which JAX does not treat as weak: k is promoted
+    to float32 even for a bf16 model, and so here."""
     H = cfg.num_heads
     hd = h.shape[-1] // H
-    q = split_heads(h @ params["wq"].to(h.dtype), H)
-    k = split_heads(h @ params["wk"].to(h.dtype), H).float() / \
-        math.sqrt(hd)
-    v = split_heads(h @ params["wv"].to(h.dtype), H)
+    q, k, v = (h @ params[w].to(h.dtype) for w in ("wq", "wk", "wv"))
+    if heads:
+        q, k, v = (split_heads(t, H) for t in (q, k, v))
+    k = k.float() / math.sqrt(hd)
     logi = (h @ params["w_igate"].to(h.dtype)).float() + params["b_igate"]
     # log_sigmoid's backward has no DTensor strategy
     logf = pointwise(F.logsigmoid,
@@ -952,7 +938,8 @@ def _mlstm_chunked(q, k, v, logi, logf, chunk: int):
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of the mLSTM "
                          f"chunk {chunk}")
-    C = torch.zeros((B, H, D, D), dtype=torch.float32, device=q.device)
+    C = torch.zeros((B, H, D, v.shape[-1]), dtype=torch.float32,
+                    device=q.device)
     N = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
     M = torch.full((B, H), NEG, dtype=torch.float32, device=q.device)
     outs = []
@@ -988,29 +975,103 @@ def _mlstm_chunked(q, k, v, logi, logf, chunk: int):
 def mlstm_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
                 cache=None, chunk: int = 256):
     """Sequence path: the quadratic form for S <= ``chunk``, else the
-    chunkwise one. Decode (cache dict(C, N, M), S == 1): one recurrent step
-    from the cached state, written back in place."""
+    chunkwise one (``_mlstm_block``). Decode (cache dict(C, N, M), S == 1):
+    one recurrent step from the cached state, written back in place. Under
+    a mesh, without a cache, the residual stream's sequence is made whole
+    over ``model`` first (a no-op without ``seq_parallel``); the block's
+    output meets the residual stream at its layout (``_residual``)."""
     h0 = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if cache is None and is_dtensor(h0):
+        h0 = h0.redistribute(h0.device_mesh, keep_dims(h0, (0,)))
     u1 = h0 @ params["w_up1"].to(x.dtype)
     u2 = F.silu(h0 @ params["w_up2"].to(x.dtype))
-    q, k, v, logi, logf = _mlstm_qkv(params, u1, cfg)
-    B, S, H, D = q.shape
     if cache is None:
-        if S <= chunk:
-            out = _heads_local(mlstm_sequence, q, k, v, logi, logf)
-        else:
-            out = _heads_local(lambda *ts: _mlstm_chunked(*ts, chunk),
-                               q, k, v, logi, logf)
+        if is_dtensor(u1):          # the projections' input, whole
+            u1 = u1.redistribute(u1.device_mesh, keep_dims(u1, (0,)))
+        out = _mlstm_block(params, u1, cfg, chunk)
     else:
         # per (batch row, head): under a mesh split as the cache splits them
+        q, k, v, logi, logf = _mlstm_qkv(params, u1, cfg)
         states = (cache["C"], cache["N"], cache["M"])
         lay = keep_dims(states[0], (0, 1))
         qlay = mapped(lay, {0: 0, 1: 2}, q.shape)
         out = _state_step(_mlstm_step, (q, k, v, logi, logf),
                           (qlay,) * 5, states, lay, qlay)     # (B,1,H,D)
-    out = rmsnorm(params["out_norm"], out, cfg.norm_eps)
-    out = merge_heads(out).to(x.dtype) * u2
-    return x + out @ params["w_down"].to(x.dtype), cache
+        out = merge_heads(rmsnorm(params["out_norm"], out, cfg.norm_eps))
+    out = out.to(x.dtype) * u2
+    return _residual(x, out @ params["w_down"].to(x.dtype)), cache
+
+
+def _mlstm_block(params, u1, cfg: ModelConfig, chunk: int):
+    """The mLSTM core and its ``out_norm`` over a sequence: u1 (B,S,up) ->
+    (B,S,up) float32. Under a mesh u1 comes whole over ``model``, q, k and
+    v come out split over ``model`` on their columns as ``wq``, ``wk`` and
+    ``wv`` are, the gates whole, and each ``model`` rank computes its
+    share on local blocks, the batch split as u1's:
+
+    - the heads divide the model axis (H % tp == 0): each rank its H/tp
+      heads, q, k and v as they lie;
+    - the model axis is a multiple of the heads (xlstm-350m's 4 over 16):
+      the g = tp/H ranks that share a head split its VALUE dim. Rank r
+      holds head r // g's value columns (r % g)·D/g onward, as v lies; the
+      head's q and k are gathered from the g ranks of its group (an
+      all-to-all among them, ``group_blocks``). Each rank forms the
+      chunk's scores, decay matrix, N and denominator of its head —
+      replicated within the group — and its D/g columns of the numerator,
+      of the carried C (D × D/g) and of the output; ``out_norm``'s mean of
+      squares over the head's D sums the group's (B, S) partial sums (a
+      gather over ``model`` of each rank's, ``gather_last``), and its
+      weight is sliced to the rank's columns.
+
+    The output leaves at q's layout, u1's column split, so that ``* u2``
+    and ``@ w_down`` (split on its rows) need no collective. Any other
+    split raises ``NotImplementedError``."""
+    H = cfg.num_heads
+    D = u1.shape[-1] // H
+    eps = cfg.norm_eps
+    lays = grads = None
+    i, tp, r, g = None, 1, 0, 1
+    if is_dtensor(u1):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        i, tp, r = model_axis(u1) or (None, 1, 0)
+        if H % tp and tp % H:
+            raise NotImplementedError(f"{H} mLSTM heads over {tp} ranks: "
+                                      f"neither divides the other")
+        g = max(tp // H, 1)
+        rows = keep_dims(u1, (0,))         # the batch's split, if any
+        cols = placed(rows, i, Shard(2))
+        whole = placed(rows, i, Replicate())
+        lays = (cols, cols, cols, whole, whole, replicate(u1))
+        grads = (cols, cols, cols, placed(rows, i, Partial()),
+                 placed(rows, i, Partial()), summed_over(cols))
+    q, k, v, logi, logf = _mlstm_qkv(params, u1, cfg, heads=False)
+    group = axis_group(u1, i) if g > 1 else None
+    Hl = max(H // tp, 1)                   # heads a rank
+    lo = r * Hl if g == 1 else r // g      # its first head
+    Dv = D // g                            # its value columns of a head
+
+    def fn(q, k, v, logi, logf, scale):
+        B, S = q.shape[:2]
+        q = group_blocks(q, group, tp, g, r).reshape(B, S, Hl, D)
+        k = group_blocks(k, group, tp, g, r).reshape(B, S, Hl, D)
+        v = v.reshape(B, S, Hl, Dv)
+        li, lf = logi[..., lo:lo + Hl], logf[..., lo:lo + Hl]
+        if S <= chunk:
+            out = mlstm_sequence(q, k, v, li, lf)
+        else:
+            out = _mlstm_chunked(q, k, v, li, lf, chunk)
+        if g == 1:
+            out = rmsnorm({"scale": scale}, out, eps)
+        else:
+            part = gather_last(out.square().sum(-1), group, tp)  # (B,S,tp)
+            var = part.reshape(B, S, H, g)[:, :, lo].sum(-1) / D
+            c0 = (r % g) * Dv
+            out = out * torch.rsqrt(var + eps)[..., None, None] * \
+                scale[c0:c0 + Dv]
+        return out.reshape(B, S, Hl * Dv)
+
+    return on_local(fn, (q, k, v, logi, logf, params["out_norm"]["scale"]),
+                    lays, lays[0] if lays else None, grads)
 
 
 def _mlstm_step(q, k, v, logi, logf, C, N, M):
@@ -1065,14 +1126,17 @@ def slstm_init(gen, cfg: ModelConfig, *, device="cpu"):
     return p
 
 
-def _slstm_step(r, carry, pre_x, one):
-    """One step: ``pre_x`` (B,4d) float32, the input's gate pre-activations
-    with their biases; ``r`` (d,4d), the recurrent weights of the gates
-    i, f, z, o side by side; carry (c, n, m, h) -> (new carry, h). ``one``
-    is a float32 1 for the normaliser's floor: ``torch.maximum`` splits the
-    gradient on a tie (n is exactly 1 whenever the input gate sets m) as
-    ``jnp.maximum`` does, where ``clamp`` would pass all of it to n."""
+def _slstm_step(r, carry, pre_x, one, gather=None):
+    """One step: ``pre_x`` (B,4n) float32, the input's gate pre-activations
+    with their biases; ``r`` (d,4n), the recurrent weights of the gates
+    i, f, z, o side by side; carry (c, n, m, h) -> (new carry, h), of n
+    channels (n = d, or a rank's d/tp, its h made whole by ``gather``
+    before ``h @ r``). ``one`` is a float32 1 for the normaliser's floor:
+    ``torch.maximum`` splits the gradient on a tie (n is exactly 1
+    whenever the input gate sets m) as ``jnp.maximum`` does, where
+    ``clamp`` would pass all of it to n."""
     c, n, m, h = carry
+    h = h if gather is None else gather(h)
     it, ft, zt, ot = (pre_x + h @ r).chunk(4, dim=-1)
     zt = torch.tanh(zt)
     ot = torch.sigmoid(ot)
@@ -1086,18 +1150,21 @@ def _slstm_step(r, carry, pre_x, one):
     return (c, n, m_new, h), h
 
 
-def _slstm_scan(pre_x, r):
+def _slstm_scan(pre_x, r, gather=None):
     """The sLSTM recurrence over a whole sequence from a zero state:
-    pre_x (B,S,4d) float32 -> h (B,S,d). On ``meta`` tensors (the dry
-    run: shapes, no values) the S steps run as one step over all B·S rows
-    — the same matmuls, forward and backward, without S trips through the
-    host (the recurrent input taken from ``pre_x`` so that its grad is
-    formed, as every step but the first forms it)."""
+    pre_x (B,S,4n) float32 -> h (B,S,n); each step's h made whole by
+    ``gather`` (a rank's n = d/tp channels; every step, the first's zeros
+    too) before ``h @ r``. On ``meta`` tensors (the dry run: shapes, no
+    values) the S steps run as one step over all B·S rows — the same
+    matmuls, forward and backward, and one gather of (B, S, d) for the S
+    of (B, d), without S trips through the host (the recurrent input
+    taken from ``pre_x`` so that its grad is formed, as every step but the
+    first forms it)."""
     B, S, d4 = pre_x.shape
     if pre_x.device.type == "meta":
         one = torch.ones((), dtype=torch.float32, device="meta")
         state = pre_x[..., :d4 // 4] * 0
-        return _slstm_step(r, (state,) * 4, pre_x, one)[1]
+        return _slstm_step(r, (state,) * 4, pre_x, one, gather)[1]
     zero = torch.zeros((B, d4 // 4), dtype=torch.float32,
                        device=pre_x.device)
     one = torch.ones((), dtype=torch.float32, device=pre_x.device)
@@ -1106,7 +1173,7 @@ def _slstm_scan(pre_x, r):
     # unbind, not pre_x[:, t]: the backward of S slices would add S
     # zero-filled (B,S,4d) grads; unbind's stacks them once
     for px in pre_x.unbind(1):
-        carry, h = _slstm_step(r, carry, px, one)
+        carry, h = _slstm_step(r, carry, px, one, gather)
         hs.append(h)
     return torch.stack(hs, dim=1)
 
@@ -1119,33 +1186,89 @@ def slstm_apply(params, x, cfg: ModelConfig, *, positions=None, local=False,
     ``h0 @ w_g + b_g``, is one float32 GEMM over all (B·S) tokens before
     the loop over time (the reference forms it step by step: the same
     math); each step adds ``h_{t-1} @ r_g``. Decode (cache dict(c, n, m,
-    h), S == 1): one step, written back in place."""
+    h), S == 1): one step, written back in place.
+
+    Under a mesh each ``model`` rank computes its d/tp channels
+    (``_slstm_local``); their h is made whole over ``model`` for ``w_up``
+    (split on its columns), and the block's output meets the residual
+    stream at its layout (``_residual``)."""
     h0 = rmsnorm(params["norm1"], x, cfg.norm_eps).float()
-    w = torch.cat([params[f"w_{g}"].float() for g in SLSTM_GATES], dim=1)
-    r = torch.cat([params[f"r_{g}"].float() for g in SLSTM_GATES], dim=1)
-    b = torch.cat([params[f"b_{g}"].float() for g in SLSTM_GATES])
-    pre_x = h0 @ w + b                                        # (B,S,4d)
+    out = _slstm_local(params, h0, cache).to(x.dtype)
+    if is_dtensor(out):
+        out = out.redistribute(out.device_mesh, keep_dims(out, (0,)))
+    up = act_fn("gelu")(out @ params["w_up"].to(x.dtype))
+    return _residual(x, up @ params["w_down"].to(x.dtype)), cache
+
+
+def _slstm_local(params, h0, cache=None):
+    """``slstm_apply``'s recurrence -> h (B,S,d) float32; under a mesh
+    split over ``model`` on its channels. Each rank runs on local blocks,
+    the batch split as h0's, its sequence and d made whole: its n = d/tp
+    channels of the four gates — the (d, n) blocks of each ``w_g`` and
+    ``r_g``, split on their columns as they lie, side by side (no cat of
+    split weights), and its channels of each ``b_g`` — form its channels
+    of i, f, z and o, and its channels of c, n and m. At each step it
+    gathers h over ``model`` (``gather_last``: an all-gather, backward a
+    reduce-scatter) for ``h @ r``, so the state never becomes whole. Off a
+    mesh, on a model axis of one rank, or for a d that does not split over
+    it, every channel is local and nothing is gathered.
+
+    Decode: the cache (c, n, m, h) at its own layout (whole over
+    ``model``, or split on d where it divides as ``lru_dim`` does): each
+    rank reads its channels of c, n and m and the whole h, steps its
+    channels, and writes them back (``write_``: gathered into a whole
+    leaf)."""
+    i, tp, r = model_axis(h0) or (None, 1, 0)
+    d = h0.shape[-1]
+    if d % tp:
+        i, tp, r = None, 1, 0
+    n = d // tp
+    lo = r * n
+    group = axis_group(h0, i)
+    ws = [params[f"{k}_{g}"] for k in "wrb" for g in SLSTM_GATES]
+    states = cache and tuple(cache[k] for k in ("c", "n", "m", "h"))
+    lays = grads = outs = None
+    if is_dtensor(h0):
+        from torch.distributed.tensor import Partial, Shard
+        rows = keep_dims(h0, (0,))
+        own = placed(rows, i, Shard(2))               # its channels
+        wlay = [placed(replicate(w), i, Shard(1)) for w in ws[:8]]
+        lays = (rows, *wlay, *(replicate(b) for b in ws[8:]))
+        grads = (placed(rows, i, Partial()),
+                 *(tuple(Partial() if p.is_shard() else q
+                         for p, q in zip(rows, lay)) for lay in wlay),
+                 *(summed_over(own),) * 4)
+        outs = own
+        if cache is not None:
+            whole = mapped(rows, {0: 0})              # (B, d)
+            mine = placed(whole, i, Shard(1))
+            lays = (*lays, mine, mine, mine, whole)
+            outs = (own, mine, mine, mine, mine)
+
+    def weights(w_i, w_f, w_z, w_o, r_i, r_f, r_z, r_o, *bs):
+        w = torch.cat([t.float() for t in (w_i, w_f, w_z, w_o)], 1)
+        rr = torch.cat([t.float() for t in (r_i, r_f, r_z, r_o)], 1)
+        b = torch.cat([t.float()[lo:lo + n] for t in bs])
+        return w, rr, b
+
     if cache is None:
-        # under a mesh, on each rank's batch rows with the whole r
-        rows = keep_dims(pre_x, (0,))
-        out = on_local(_slstm_scan, (pre_x, r), (rows, replicate(r)), rows,
-                       rows and (rows, summed_over(rows)))
-    else:
-        # under a mesh on each rank's batch rows, every channel (a state
-        # split over d is gathered for h @ r) and the recurrent weights whole
-        rows = keep_dims(pre_x, (0,))
-        out = _state_step(_slstm_decode, (r, pre_x), (replicate(r), rows),
-                          tuple(cache[k] for k in ("c", "n", "m", "h")),
-                          rows, rows)
-    up = act_fn("gelu")(out.to(x.dtype) @ params["w_up"].to(x.dtype))
-    return x + up @ params["w_down"].to(x.dtype), cache
+        def fn(h0, *ws):
+            w, rr, b = weights(*ws)
+            return _slstm_scan(h0 @ w + b, rr,
+                               lambda h: gather_last(h, group, tp))
 
+        return on_local(fn, (h0, *ws), lays, outs, grads)
 
-def _slstm_decode(r, pre_x, *carry):
-    """One step from the carry (c, n, m, h) -> (h (B,1,d), *new carry)."""
-    one = torch.ones((), dtype=torch.float32, device=pre_x.device)
-    new, h = _slstm_step(r, carry, pre_x[:, 0], one)
-    return (h[:, None, :], *new)
+    def step(h0, *args):
+        w, rr, b = weights(*args[:12])
+        one = torch.ones((), dtype=torch.float32, device=h0.device)
+        new, h = _slstm_step(rr, args[12:], (h0 @ w + b)[:, 0], one)
+        return (h[:, None, :], *new)
+
+    res = on_local(step, (h0, *ws, *states), lays, outs)
+    for dst, val in zip(states, res[1:]):
+        write_(dst, val)
+    return res[0]
 
 
 def slstm_cache_init(cfg: ModelConfig, batch: int, *, device="cpu"):

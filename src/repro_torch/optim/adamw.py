@@ -74,24 +74,30 @@ def _local(t):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """float32 sqrt of the sum of squares of every leaf. DTensor leaves
-    count each element of the logical tensor once: the local sums of the
-    leaves split alike are added, then summed over the mesh dims that split
-    them (never over a dim that holds copies)."""
+    """float32 sqrt of the sum of squares of every leaf: each leaf's sum,
+    then their total in leaf order. DTensor leaves count each element of
+    the logical tensor once: a leaf's local sum is summed over the mesh
+    dims that split it (never over a dim that holds copies; one collective
+    for the leaves split alike), so that the total adds the same leaf sums
+    in the same order as off a mesh (a 1x1 mesh gives the same bits)."""
     leaves = _leaves(tree)
     device = _local(leaves[0]).device
-    sums: dict = {}            # split mesh dims -> local sum of squares
+    sums = []
     for leaf in leaves:
-        key = _split_dims(leaf)
-        total = sums.get(key, torch.zeros((), dtype=torch.float32,
-                                          device=device))
+        total = torch.zeros((), dtype=torch.float32, device=device)
         for piece in _pieces(_local(leaf)):
             total = total + piece.float().square().sum()
-        sums[key] = total
+        sums.append(total)
+    splits = [_split_dims(leaf) for leaf in leaves]
+    for key in {k for k in splits if k is not None and any(k)}:
+        idx = [j for j, k in enumerate(splits) if k == key]
+        summed = _sum_over(torch.stack([sums[j] for j in idx]), key,
+                           leaves[0].device_mesh)
+        for j, part in zip(idx, summed.unbind(0)):
+            sums[j] = part
     total = torch.zeros((), dtype=torch.float32, device=device)
-    for key, part in sums.items():
-        total = total + (part if key is None
-                         else _sum_over(part, key, leaves[0].device_mesh))
+    for part in sums:
+        total = total + part
     return torch.sqrt(total)
 
 

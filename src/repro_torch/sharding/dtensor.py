@@ -11,7 +11,10 @@ loop over time, a gather/scatter routing, a CUDA kernel); ``gathered``
 makes a parameter split over the data axes (FSDP) whole there before use.
 ``zeros`` makes a
 DTensor from each rank's block alone, and ``write_`` writes into a
-DTensor's own blocks in place (a decode cache).
+DTensor's own blocks in place (a decode cache). Inside ``on_local``,
+``gather_last`` and ``group_blocks`` exchange local blocks over one mesh
+dim's process group with autograd (functional collectives: a gather's
+backward is a reduce-scatter), skipped where that dim has one rank.
 """
 
 from __future__ import annotations
@@ -188,3 +191,42 @@ def write_(dst, src) -> None:
     own = tuple(dst.placements)
     on_local(lambda d, s: d.copy_(s), (dst, like(src, dst)), (own, own),
              own)
+
+
+def axis_group(t, i: int | None):
+    """The process group of mesh dim ``i`` of DTensor ``t``'s mesh, or None
+    where there is none or it has one rank (nothing to exchange)."""
+    if i is None or not is_dtensor(t) or t.device_mesh.size(i) == 1:
+        return None
+    return t.device_mesh.get_group(i)
+
+
+def gather_last(t, group, n: int):
+    """``t`` (..., c), one block on each of the ``n`` ranks of ``group``,
+    -> (..., n·c): the blocks side by side in rank order, on every rank.
+    Its backward reduce-scatters the grad, each rank's share of the sum
+    over the ranks. ``t`` itself where ``group`` is None."""
+    if group is None:
+        return t
+    import torch.distributed._functional_collectives as fc
+    gather = getattr(fc, "all_gather_single_autograd", None) or \
+        fc.all_gather_tensor_autograd
+    out = gather(t.contiguous(), 0, group)           # (n·lead, ...)
+    return torch.cat(out.chunk(n, dim=0), dim=-1)
+
+
+def group_blocks(t, group, n: int, g: int, r: int):
+    """``t`` (..., c) on rank ``r`` of the ``n`` ranks of ``group`` -> (...,
+    g·c): the blocks of the ``g`` ranks of r's run [r - r % g, r - r % g +
+    g), side by side in rank order — an all-gather within each run, as one
+    all-to-all over the group in which a rank sends its block to the
+    ranks of its run and nothing to the rest. Backward the same, the
+    grads of a block summed at its rank. ``t`` itself where ``g`` is 1."""
+    if g == 1:
+        return t
+    import torch.distributed._functional_collectives as fc
+    first = r - r % g
+    sizes = [int(first <= j < first + g) for j in range(n)]
+    sent = t.unsqueeze(0).expand(g, *t.shape).contiguous()
+    out = fc.all_to_all_single_autograd(sent, sizes, sizes, group)
+    return torch.cat(out.unbind(0), dim=-1)

@@ -38,7 +38,7 @@ Each worker checks, on every rank, a batch of 4 x 128 positions:
   all-gather of the step has the bytes of the whole (V, d) table;
 - the prefill's FLOPs per rank are the unsharded prefill's over the
   ranks (2%, counted on ``meta``), and a mutant core that makes the heads
-  whole where the KV heads do not split (the old ``_heads_local`` call)
+  whole where the KV heads do not split (the parent's ``_heads_local`` call)
   fails that wherever they do not;
 - ``transformer._lookup`` alone: the embeddings of a vocab-split table
   and of a d-split one bit-equal to the unsharded lookup, and the table's
@@ -122,7 +122,7 @@ def worker(rank: int, world: int, directory: str, port: int) -> None:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.specs import serve_cache_layouts
     from repro_torch.models import layers as L, transformer as T
-    from repro_torch.sharding.dtensor import like
+    from repro_torch.sharding.dtensor import keep_dims, like, on_local
     from repro_torch.sharding.partition import Partitioner, shard_tree
     from repro_torch.train.steps import (_unflat, generate, init_train_state,
                                          make_loss_fn, make_prefill_step,
@@ -183,9 +183,14 @@ def worker(rank: int, world: int, directory: str, port: int) -> None:
         return chunked(q, *a, **kw)
 
     def whole_heads(q, k, v, cfg, window):
-        """The parent's core: every input whole over the heads."""
-        return L._heads_local(lambda *ts: L.chunked_attention(
-            *ts, cfg, window), q, k, v)
+        """The parent's core (its ``layers._heads_local`` call): every
+        input split as q over batch and heads where all split them alike,
+        else whole over the heads."""
+        lay = keep_dims(q, (0, 2))
+        if any(keep_dims(t, (0, 2)) != lay for t in (k, v)):
+            lay = keep_dims(q, (0,))
+        return on_local(lambda *ts: L.chunked_attention(*ts, cfg, window),
+                        (q, k, v), (lay,) * 3, lay)
 
     L._attention_local, L.chunked_attention = recording_core, recording_chunked
     out: dict = {}

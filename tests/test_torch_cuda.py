@@ -1417,3 +1417,199 @@ def test_mesh_attention_on_four_cards(cuda, tmp_path):
         assert res["ok"], (r, res)
     print("four-card attention and lookup split over model, largest "
           "difference over the largest value:", res["err"])
+
+
+def mesh_xlstm(mesh, device: str = "cuda") -> tuple[bool, float]:
+    """``tests/test_torch_xlstm_mesh.py``'s reduced float32 xlstm-350m (2
+    mLSTM heads, d 256) on ``mesh``, its ranks on the card: the mLSTM core
+    split over ``model`` (each rank its heads, or its columns of a head's
+    value dim) and the sLSTM's channels, h gathered at every step. The
+    forward logits, the loss and every grad, and the prefill's logits,
+    against the unsharded port on the CPU (rtol 1e-4, atol 1e-5 of each
+    tensor's largest value, of the tree's largest grad for the grads that
+    are zero in exact arithmetic; the loss rtol 1e-5), with no all-gather
+    of a whole (d, d) or (d, 4d) sLSTM gate weight. Returns (all held, the
+    largest difference over the largest value). (``device="cpu"``
+    rehearses it on gloo ranks.)"""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_xlstm_mesh import (B, MESH_TOL, NOISE_GRADS,
+                                       batch_arrays, config)
+    from repro_torch.configs import get_config
+    from repro_torch.core.serialization import path_str, \
+        tree_leaves_with_path
+    from repro_torch.launch.dryrun import CostMode, act_layout
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.partition import Partitioner, shard_tree
+    from repro_torch.train.steps import (_unflat, make_loss_fn,
+                                         make_prefill_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = config(get_config)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    arrays = batch_arrays(cfg)
+    batch = {k: torch.from_numpy(arrays[k]) for k in ("tokens", "labels")}
+    names = [path_str(k) for k, _ in tree_leaves_with_path(params)]
+
+    def run(p, b, act=None):
+        flat = tree_leaves_with_path(p)
+        leaves = [t.detach().requires_grad_(True) for _, t in flat]
+        loss, _ = make_loss_fn(cfg, act)(
+            _unflat(zip((k for k, _ in flat), leaves)), b)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            logits = T.forward(p, cfg, b["tokens"], act_sharding=act)[0]
+        return [loss, logits, make_prefill_step(cfg, act)(p, b), *grads]
+
+    want = run(params, batch)
+    part = Partitioner(cfg, mesh)
+    dparams = shard_tree(_unflat((k, v.to(device)) for k, v in
+                                 tree_leaves_with_path(params)),
+                         part.param_shardings(params))
+    tok = part.tokens_sharding(B)
+    with CostMode() as cost:
+        got = run(dparams, {k: tok.distribute(v.to(device))
+                            for k, v in batch.items()},
+                  act_layout(cfg, mesh, B))
+    d = cfg.d_model
+    ok = not [s for s, _ in cost.gathers
+              if len(s) == 2 and s[0] * s[1] in (d * d, 4 * d * d)]
+    grads_top = max(float(g.abs().max()) for g in want[3:])
+    worst = 0.0
+    for i, (g, h) in enumerate(zip(got, want)):
+        g = (g.full_tensor() if hasattr(g, "full_tensor") else g).detach()
+        g, h = g.cpu(), h.detach()
+        top = float(h.abs().max())
+        if i >= 3 and names[i - 3].endswith(NOISE_GRADS):
+            top = grads_top
+        rtol = 1e-5 if i == 0 else MESH_TOL["rtol"]
+        ok &= bool(torch.allclose(g, h, rtol=rtol,
+                                  atol=MESH_TOL["atol"] * top))
+        worst = max(worst, float((g - h).abs().max()) / max(top, 1e-30))
+    return ok, worst
+
+
+def xlstm_step_times(mesh, reps: int = 3) -> dict:
+    """The wall of one forward + backward of one full-width xlstm-350m
+    (mLSTM, sLSTM) group (bf16, ``TRAIN`` tokens: 8 x 255) on ``mesh``
+    and unsharded on this rank's card, each the median of ``reps`` after
+    a warm-up call, synchronised: the sLSTM's per-step gather of h over
+    ``model`` against the loop without one. {"mesh_s", "unsharded_s"}."""
+    import statistics
+    import time
+    from repro_torch.configs import get_config
+    from repro_torch.core.serialization import tree_leaves_with_path
+    from repro_torch.launch.dryrun import act_layout
+    from repro_torch.models import layers as L, transformer as T
+    from repro_torch.sharding.partition import Partitioner, shard_tree
+    from repro_torch.train.steps import _unflat, make_loss_fn
+    cfg = get_config("xlstm-350m").replace(num_layers=2)
+    B, S = 8, 255
+    params = T.cast_params(T.init_params(cfg, seed=0, device="cuda"),
+                           L.dtype_of(cfg))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                dtype=torch.int32, device="cuda")
+             for k in ("tokens", "labels")}
+
+    def step(p, b, act=None):
+        flat = tree_leaves_with_path(p)
+        leaves = [t.detach().requires_grad_(True) for _, t in flat]
+        loss, _ = make_loss_fn(cfg, act)(
+            _unflat(zip((k for k, _ in flat), leaves)), b)
+        torch.autograd.grad(loss, leaves)
+
+    def timed(*args) -> float:
+        step(*args)
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls)
+
+    plain = timed(params, batch)
+    part = Partitioner(cfg, mesh)
+    tok = part.tokens_sharding(B)
+    on_mesh = timed(shard_tree(params, part.param_shardings(params)),
+                    {k: tok.distribute(v) for k, v in batch.items()},
+                    act_layout(cfg, mesh, B))
+    return {"mesh_s": on_mesh, "unsharded_s": plain}
+
+
+def test_mesh_xlstm_on_the_card_matches_cpu(cuda_mesh):
+    """``mesh_xlstm`` on a 1x1 CUDA mesh: the xLSTM blocks split over a
+    model axis of size 1 (no collective), as the smoke's phase 4l runs
+    them; one full-width group's forward + backward timed on the mesh
+    beside the unsharded one (``xlstm_step_times``)."""
+    ok, worst = mesh_xlstm(cuda_mesh)
+    assert ok, worst
+    print("1x1 xLSTM group step, full width, 8 x 255 tokens:",
+          xlstm_step_times(cuda_mesh))
+
+
+MESH_XLSTM = r"""
+import json, os, sys
+from datetime import timedelta
+import torch.distributed as dist
+rank, out, port = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sys.path.insert(0, os.path.dirname(os.path.abspath(sys.argv[4])))
+from test_torch_cuda import mesh_xlstm, xlstm_step_times
+from repro_torch.launch.mesh import make_host_mesh
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=4,
+                        timeout=timedelta(seconds=300))
+mesh = make_host_mesh(1, 4)
+ok, err = mesh_xlstm(mesh)
+times = xlstm_step_times(mesh)
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(dict(ok=ok, err=err, **times), f)
+dist.destroy_process_group()
+print("MESH-XLSTM-OK")
+"""
+
+
+def test_mesh_xlstm_on_four_cards(cuda, tmp_path):
+    """``mesh_xlstm`` on a 1x4 mesh of four cards (NCCL, one process per
+    card): two cards to an mLSTM head, each its half of the head's value
+    columns (q and k exchanged by an all-to-all within the pair, the
+    output norm's sums gathered), and 64 of the sLSTM's 256 channels a
+    card, h all-gathered at every step; equal to the CPU's unsharded run.
+    One full-width (mLSTM, sLSTM) group's forward + backward is timed on
+    the 1x4 mesh beside the unsharded one on a card
+    (``xlstm_step_times``). Skips with fewer than four cards."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (one process per card)")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_XLSTM, str(r), str(tmp_path),
+         str(port), __file__], env=dict(
+             os.environ, OMP_NUM_THREADS="1",
+             PYTHONPATH=os.path.join(root, "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0] * 4, \
+        [log[-3000:] for log in logs]
+    for r in range(4):
+        with open(tmp_path / f"rank{r}.json") as f:
+            res = json.load(f)
+        assert res["ok"], (r, res)
+    print("four-card xLSTM blocks split over model, largest difference "
+          "over the largest value:", res["err"], "; a full-width group's "
+          "forward + backward (8 x 255 tokens) on 1x4 vs one card:",
+          {k: v for k, v in res.items() if k.endswith("_s")})

@@ -7,7 +7,8 @@ Cells: reduced qwen2.5-3b and olmoe-1b-7b (2 layers, width / 4, vocab
 top-2) at train (8 x 256 tokens, 4 microbatches), prefill (8 x 256) and
 decode (8 tokens against 256 cache slots) on a 2x4 (data, model) mesh;
 and production olmoe-1b-7b ``decode_32k``, the two MoE configs'
-``prefill_32k`` and the GQA cells of ``PRODUCTION_GQA`` on 16x16. The
+``prefill_32k``, the GQA cells of ``PRODUCTION_GQA`` and xlstm-350m
+``prefill_32k`` (the xLSTM blocks split over ``model``) on 16x16. The
 port's cells run in one subprocess (a process holds one fake process
 group at a time), the reference's ``_jit_cell`` compiles in another with
 8 host devices, as ``tests/test_dryrun.py`` does.
@@ -56,6 +57,7 @@ against DTensor:
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -77,6 +79,36 @@ PEAK_LIMIT = 20e9           # bytes a device: prefill_32k of PREFILL_MOE
 PRODUCTION_GQA = (("qwen3-32b", "prefill_32k"), ("gemma2-9b", "prefill_32k"),
                   ("qwen3-32b", "decode_32k"))
 DECODE_GATHER_LIMIT = 64e6  # all-gather bytes a device of one decode step
+# xlstm-350m prefill_32k on 16x16 with the xLSTM blocks split over model
+# (the parent: 2.041e13 FLOPs, a peak of 5.994 GB a device)
+XLSTM_FLOPS_LIMIT = 5.0e12
+XLSTM_PEAK_LIMIT = 2.0e9
+
+
+def slstm_gathers(B: int = 2, S: int = 16, d: int = 32, tp: int = 4
+                  ) -> dict:
+    """``layers._slstm_scan`` of one rank's d/tp channels, forward and
+    backward under ``CostMode``, its h gathered over a fake process group
+    of ``tp`` ranks at each step: on CPU tensors (the loop over time) and
+    on ``meta`` (one step over all B·S rows) -> {device: collective bytes
+    by kind and ``flops``}."""
+    import torch
+    from repro_torch.launch.dryrun import CostMode, fake_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.sharding.dtensor import gather_last
+    got = {}
+    with fake_mesh((tp,), ("model",)) as mesh:
+        group = mesh.get_group(0)
+        for dev in ("cpu", "meta"):
+            px = torch.ones(B, S, 4 * d // tp, device=dev,
+                            requires_grad=True)
+            r = torch.ones(d, 4 * d // tp, device=dev, requires_grad=True)
+            with CostMode() as cost:
+                h = L._slstm_scan(px, r, lambda t: gather_last(t, group, tp))
+                torch.autograd.grad(h.sum(), (px, r))
+            got[dev] = dict(cost.collective_bytes, flops=cost.flops,
+                            shape=list(h.shape))
+    return got
 
 
 def narrow(get_config, arch):
@@ -98,7 +130,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch.dryrun import measure_cell, run_cell
 from repro_torch.models.config import ShapeConfig
 from test_torch_dryrun_cost import (ARCHS, DP, PREFILL_MOE, PRODUCTION_GQA,
-                                    TP, TWO_HEADS, narrow, shapes)
+                                    TP, TWO_HEADS, narrow, shapes,
+                                    slstm_gathers)
 out = {}
 for arch in ARCHS:
     for shape in shapes(ShapeConfig):
@@ -109,6 +142,8 @@ for arch in PREFILL_MOE:
     out[f"prefill/{arch}"] = run_cell(arch, "prefill_32k")
 for arch, shape in PRODUCTION_GQA:
     out[f"gqa/{arch}/{shape}"] = run_cell(arch, shape)
+out["xlstm"] = run_cell("xlstm-350m", "prefill_32k")
+out["slstm_gathers"] = slstm_gathers()
 out["split"] = run_cell("olmoe-1b-7b", "decode_32k", mesh_split=(4, 64))
 cfg = narrow(get_config, "qwen2.5-3b")
 train, prefill = shapes(ShapeConfig)[:2]
@@ -274,11 +309,13 @@ def test_run_cell_takes_mesh_split_microbatches_and_seq_parallel(cells):
 
 @pytest.mark.parametrize("arch", TWO_HEADS)
 def test_train_step_runs_where_the_heads_do_not_split(cells, arch):
-    """Training with 2 heads over a model axis of 4 (xlstm-350m's mLSTM,
-    recurrentgemma's local attention): DTensor hands the merged heads'
-    grad back split 4 ways, which ``layers.merge_heads`` views at the
-    heads' own layout; recurrentgemma's RG-LRU scan runs on ``meta``
-    tensors as shapes only."""
+    """Training with 2 heads over a model axis of 4: xlstm-350m's mLSTM
+    (two ranks to a head, each its half of the value columns,
+    ``layers._mlstm_block``) and recurrentgemma's local attention
+    (DTensor hands the merged heads' grad back split 4 ways, which
+    ``layers.merge_heads`` views at the heads' own layout);
+    recurrentgemma's RG-LRU scan runs on ``meta`` tensors as shapes
+    only."""
     rec = cells[0][f"two_heads/{arch}"]
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["per_device"]["flops"] > 0
@@ -389,3 +426,52 @@ def test_slstm_on_meta_counts_the_loops_flops():
         got[dev] = (fc.get_total_flops(), tuple(h.shape))
     assert got["meta"][1] == got["cpu"][1] == (B, S, d)
     assert got["meta"][0] == got["cpu"][0] + 2 * B * d * 4 * d
+
+
+def test_slstm_on_meta_gathers_the_loops_bytes(cells):
+    """A rank's d/tp channels of the sLSTM, its h gathered over ``model``
+    at every step (``layers._slstm_local``): on ``meta`` the one step over
+    all B·S rows all-gathers the bytes of the S steps of the loop in sum,
+    and its FLOPs and backward reduce-scatters are the loop's plus the
+    first step's recurrent-input grad, which the loop does not form (its
+    first step gathers the constant zero state)."""
+    got = cells[0]["slstm_gathers"]
+    cpu, meta = got["cpu"], got["meta"]
+    B, S, d, tp = 2, 16, 32, 4
+    assert meta["shape"] == cpu["shape"] == [B, S, d // tp]
+    assert meta["all-gather"] == cpu["all-gather"] == S * B * d * 4, cpu
+    assert cpu["reduce-scatter"] == (S - 1) * B * d // tp * 4, cpu
+    assert meta["reduce-scatter"] == cpu["reduce-scatter"] + B * d // tp * 4
+    assert meta["flops"] == cpu["flops"] + 2 * B * d * 4 * d // tp
+
+
+def test_production_xlstm_prefill_splits_its_blocks(cells):
+    """16x16 xlstm-350m ``prefill_32k`` (4 mLSTM heads over 16 model
+    ranks: 4 ranks to a head, each its 128 of the head's 512 value
+    columns; the sLSTM 64 of its 1024 channels a rank): the FLOPs a device
+    within ``XLSTM_FLOPS_LIMIT`` and the peak within ``XLSTM_PEAK_LIMIT``
+    (the parent ran every head and channel on each model rank: 2.041e13
+    FLOPs, 5.994 GB); no all-gather of a whole (d, d) or (d, 4d) sLSTM
+    gate weight (in any orientation: DTensor gathers a column split
+    transposed); and the only all-gathers of v's size with every head are
+    u1's, the projections' input, one an mLSTM block (neither v, nor q, nor
+    k is made whole)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import SHAPES_BY_NAME
+    rec = cells[0]["xlstm"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    cfg, sc = get_config("xlstm-350m"), SHAPES_BY_NAME["prefill_32k"]
+    pd = rec["per_device"]
+    assert pd["flops"] <= XLSTM_FLOPS_LIMIT, pd["flops"]
+    assert pd["peak_hbm_bytes"] <= XLSTM_PEAK_LIMIT, pd["peak_hbm_bytes"]
+    d = cfg.d_model
+    assert not [s for s in pd["all_gather_shapes"]
+                if len(s) == 2 and s[0] * s[1] in (d * d, 4 * d * d)], \
+        pd["all_gather_shapes"]
+    up = int(cfg.proj_factor * d)
+    v = sc.global_batch // 16 * sc.seq_len * up
+    counts = pd["all_gather_counts"]
+    mlstm = cfg.num_layers // len(cfg.block_pattern)
+    whole_v = sum(n for k, n in counts.items()
+                  if math.prod(int(x) for x in k.split("x")) == v)
+    assert whole_v == mlstm, counts

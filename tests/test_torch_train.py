@@ -407,3 +407,35 @@ def test_launch_train_with_a_remote_dir_on_the_cpu(tmp_path):
     with port_manager(remote) as a, port_manager(ckpt) as b:
         assert leaves_bytes(a.restore(step=2)) == \
             leaves_bytes(b.restore(step=2))
+
+
+def test_global_norm_adds_the_leaf_sums_in_leaf_order(tmp_path):
+    """``global_norm`` adds each leaf's float32 sum of squares in leaf
+    order, as the reference's ``global_norm`` does, and on a 1x1 mesh,
+    whatever splits its DTensor leaves, the same bits: summed per split
+    pattern first, the clip scale of a 1x1-mesh step differed from the
+    unsharded one's by an ulp (these seeded leaves tell the two orders
+    apart), which bf16 steps amplified into different losses."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import global_norm
+    rng = np.random.default_rng(1)
+    leaves = [torch.from_numpy((rng.standard_normal(n) * scale).astype(
+        np.float32)) for n, scale in ((300, 1.0), (50, 30.0), (700, 0.3),
+                                      (20, 100.0))]
+    total = torch.zeros(())
+    for t in leaves:
+        total = total + t.square().sum()
+    plain = global_norm({f"l{i}": t for i, t in enumerate(leaves)})
+    assert torch.equal(plain, torch.sqrt(total))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device="cpu")
+        tree = {f"l{i}": DTensor.from_local(
+            t, mesh, (Replicate(), Shard(0) if i % 2 == 0 else Replicate()),
+            run_check=False) for i, t in enumerate(leaves)}
+        assert torch.equal(global_norm(tree), plain)
+    finally:
+        dist.destroy_process_group()
