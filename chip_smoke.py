@@ -235,9 +235,30 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                (tests/test_torch_xlstm_mesh.py) and four cards
                (``test_mesh_xlstm_on_four_cards``). No kernel of the five
                launches in 4l.
+     4m. the slice's path, the train step's loss split over ``model``:
+               qwen2.5-3b at full width and vocab cut to 2 of 36 layers
+               (bf16, weights of seed 0; nothing written): (a) three steps
+               of ``make_train_step(microbatches=2)`` on one seeded batch
+               of 4 x 4096 tokens, unsharded and on a 1-rank NCCL group and
+               ``make_host_mesh(1, 1)``, where each microbatch keeps the
+               batch's layout and each loss chunk's logits the table's
+               (``train.steps.token_nll``: a one-rank vocab group here);
+               every loss equal to the unsharded one to the last bit, and
+               the warm third step's peak on the mesh against the dry
+               run's "4m" cell (below); (b) ``token_nll`` held against the
+               plain ``cross_entropy`` on one chunk's (2, 512, 151936)
+               float32 logits (the mean within 1e-6 relative, the logits'
+               grad within 1e-6 of its largest value), its forward +
+               backward ms beside the composition's, and a microbatch's
+               whole loss (unembed included) beside the loss before the
+               split. The split itself is held on gloo ranks
+               (tests/test_torch_ce_mesh.py) and four cards
+               (``test_mesh_cross_entropy_on_four_cards``). No kernel of
+               the five launches in 4m.
   dry run vs card — ``launch.dryrun.measure_cell`` on a 1x1 fake mesh for
                4h (a)'s, 4j (b)'s and 4l's train steps (their configs
-               and depths, 8 x 255 tokens, one microbatch; a process of its
+               and depths, 8 x 255 tokens, one microbatch) and 4m's (4 x
+               4096 tokens, 2 microbatches; a process of its
                own on ``meta``, started after phase 1): each predicted
                ``peak_hbm_bytes`` against the step's own peak on the card
                (``max_memory_allocated()`` of the warm step, less what was
@@ -255,7 +276,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
                collective bytes by kind, the GQA and xLSTM cells beside
                the parent's; a ``prefill_32k`` peak above an 80 GB card, an
                all-gather of a whole (V, d) embedding table, a decode step
-               that all-gathers 64 MB or more, or an xLSTM cell over 5e12
+               that all-gathers 64 MB or more, a ``train_4k`` cell that
+               all-gathers a loss chunk's whole-vocab logits, a qwen2.5-3b
+               ``train_4k`` peak of 2 GB or more (13.62 GB before the loss
+               split over ``model``; the MoE ``train_4k`` cells printed
+               beside their numbers before it), or an xLSTM cell over 5e12
                FLOPs or a 2 GB peak a device, or that all-gathers a whole
                sLSTM gate weight or v, q or k with every head, fails the
                run.
@@ -351,14 +376,26 @@ PRODUCTION_MOE = (("moonshot-v1-16b-a3b", "train_4k"),
                   ("olmoe-1b-7b", "train_4k"),
                   ("moonshot-v1-16b-a3b", "prefill_32k"),
                   ("olmoe-1b-7b", "prefill_32k"))
+# their train_4k numbers a device before the loss split over `model`
+# (PERF.md): peak bytes, FLOPs, collective bytes by kind
+PRODUCTION_MOE_BEFORE = {
+    "moonshot-v1-16b-a3b train_4k": (16_199_075_892, 1.66369853177856e14,
+                                     dict(all_gather=453_292_064_768,
+                                          all_reduce=215_026_041_048,
+                                          reduce_scatter=12_516_655_104)),
+    "olmoe-1b-7b train_4k": (4_967_403_572, 5.4208929726464e13, dict(
+        all_gather=175_311_421_440, all_reduce=77_947_289_824,
+        reduce_scatter=5_505_630_208))}
 # the dry run's GQA cells on 16x16 whose KV heads do not split 16 ways,
-# longest first, and their numbers a device before the split (PERF.md):
-# peak bytes, FLOPs, collective bytes by kind
+# longest first, and their numbers a device before the change that last
+# moved them (PERF.md): qwen2.5-3b train_4k's before the loss split over
+# `model`, the others' before attention split over it; peak bytes, FLOPs,
+# collective bytes by kind
 PRODUCTION_GQA = (("qwen2.5-3b", "train_4k"), ("qwen3-32b", "prefill_32k"),
                   ("gemma2-9b", "prefill_32k"), ("qwen3-32b", "decode_32k"))
 PRODUCTION_GQA_BEFORE = {
-    "qwen2.5-3b train_4k": (13.62e9, 6.294e14, dict(
-        all_gather=550.04e9, all_reduce=49.76e9, reduce_scatter=33.75e9)),
+    "qwen2.5-3b train_4k": (13.62e9, 1.117e14, dict(
+        all_gather=65.81e9, all_reduce=64.96e9, reduce_scatter=0.6586e9)),
     "qwen3-32b prefill_32k": (41.19e9, 5.113e15, dict(
         all_gather=303.56e9, all_reduce=42.95e9, reduce_scatter=32.21e9)),
     "gemma2-9b prefill_32k": (20.15e9, 2.076e15, dict(
@@ -374,6 +411,14 @@ PRODUCTION_XLSTM_BEFORE = {
         all_gather=704_643_072, all_reduce=16_265_510_912))}
 XLSTM_FLOPS_LIMIT = 5.0e12
 XLSTM_PEAK_LIMIT = 2.0e9
+CE_ARCH = "qwen2.5-3b"             # phase 4m: full width and vocab
+CE_LAYERS = 2                      # 4m: of its 36 layers
+CE_SHAPE = (4, 4096)               # 4m: a step's rows and tokens
+CE_MICROBATCHES = 2
+CE_TOL = 1e-6                      # 4m: token_nll against cross_entropy
+# the dry run's qwen2.5-3b train_4k on 16x16 with the loss split over
+# `model`: its peak a device (before the split: 13.62 GB)
+CE_PEAK_LIMIT = 2.0e9
 CARD_BYTES = 80e9                  # an H100's device memory
 CHECKPOINT_LAYERS = 1
 PROBE_BYTES = 512 << 20
@@ -3540,6 +3585,192 @@ def xlstm_mesh(cfg=None, device: str = "cuda") -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 4m
+def ce_config():
+    """4m's model: qwen2.5-3b at full width and vocab, ``CE_LAYERS`` of its
+    36 layers."""
+    from repro_torch.configs import get_config
+    return get_config(CE_ARCH).replace(num_layers=CE_LAYERS)
+
+
+def old_chunked_cross_entropy(params, cfg, h, labels, chunk: int):
+    """The loss before it split over ``model``, on plain tensors: the table
+    cast again for every chunk, then ``logsumexp`` and the gold logit's
+    ``gather`` (the composition ``token_nll`` replaced)."""
+    import torch
+    from repro_torch.models import transformer as T
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for a in range(0, h.shape[1], chunk):
+        logits = T._unembed(params, cfg, h[:, a:a + chunk])
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, a:a + chunk].long()
+                            [..., None])[..., 0]
+        total = total + torch.sum(lse - gold)
+    return total / (h.shape[0] * h.shape[1])
+
+
+def ce_mesh(cfg=None, device: str = "cuda") -> dict:
+    """Phase 4m, the train step's loss split over ``model``: ``cfg``
+    (``ce_config``: qwen2.5-3b at full width and vocab, 2 layers, bf16,
+    weights of seed 0; nothing written). (a) Three steps of
+    ``make_train_step(microbatches=2)`` on one seeded batch of
+    ``CE_SHAPE`` (4 x 4096 tokens), unsharded and on a 1-rank NCCL group
+    and ``make_host_mesh(1, 1)``: every loss equal to the last bit, and
+    the last (warm) step's peak on the mesh against the dry run's "4m"
+    cell. (b) ``token_nll`` against the plain ``cross_entropy`` on one
+    chunk's (2, 512, 151936) float32 logits: the mean within ``CE_TOL``
+    relative, the logits' grad within ``CE_TOL`` of its largest value;
+    forward + backward ms of the two, and of a microbatch's whole loss
+    (``chunked_cross_entropy``: unembed, the Function, its backward)
+    beside the composition it replaced (``old_chunked_cross_entropy``).
+    (A narrow ``cfg`` and ``device="cpu"`` rehearse it on a gloo
+    group.)"""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import act_layout, storages
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L, transformer as T
+    from repro_torch.sharding.partition import Partitioner, shard_tree
+    from repro_torch.train.steps import (CE_CHUNK, chunked_cross_entropy,
+                                         cross_entropy, init_train_state,
+                                         make_train_step, token_nll)
+    cfg = cfg or ce_config()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    B, S = CE_SHAPE
+    M = CE_MICROBATCHES
+    rng = np.random.default_rng(4)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                dtype=torch.int32, device=dev)
+             for k in ("tokens", "labels")}
+    log(f"4m {cfg.name}: {cfg.num_layers} of 36 layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}; 3 steps of "
+        f"{B} x {S} tokens in {M} microbatches, unsharded and on a 1x1 mesh")
+    out: dict = {}
+
+    def three_steps(tag: str, mesh=None) -> dict:
+        release(dev)
+        state = init_train_state(cfg, seed=0, device=device)
+        b, kw = batch, {}
+        if mesh is not None:
+            part = Partitioner(cfg, mesh)
+            sh = part.state_shardings(state)
+            state = shard_tree(state, sh)
+            tok = part.tokens_sharding(B)
+            b = {k: tok.distribute(v) for k, v in batch.items()}
+            kw = dict(grad_shardings=sh["opt"]["mu"],
+                      act_sharding=act_layout(cfg, mesh, B // M))
+        step = make_train_step(cfg, microbatches=M, **kw)
+        run: dict = dict(losses=[], step_s=[], memory=None)
+        for i in range(3):
+            warm = i == 2 and cuda
+            sync(dev)
+            if warm:
+                args = sum(storages((state, b)).values())
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = float(step(state, b)[1]["loss"])
+            sync(dev)
+            run["step_s"].append(time.perf_counter() - t0)
+            if warm:
+                peak = torch.cuda.max_memory_allocated()
+                run["memory"] = dict(
+                    max_memory_allocated=peak, allocated_before=before,
+                    argument_bytes=args, resident_bytes=before - args,
+                    step_peak_bytes=peak - (before - args))
+            if not math.isfinite(loss):
+                fail(f"4m (a) {tag} step {i} loss {loss}")
+            run["losses"].append(loss)
+        del state, b
+        release(dev)
+        log(f"4m (a) {tag}: losses " + ", ".join(
+            f"{x!r}" for x in run["losses"]) + "; step walls " + " / ".join(
+            f"{t:.3f}" for t in run["step_s"]) + " s" + (
+            f"; warm step's own peak {run['memory']['step_peak_bytes']} B"
+            if run["memory"] else ""))
+        return run
+
+    out["unsharded"] = three_steps("unsharded")
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        out["mesh"] = three_steps("1x1 mesh", make_host_mesh(1, 1,
+                                                            device=device))
+    finally:
+        dist.destroy_process_group()
+    if out["mesh"]["losses"] != out["unsharded"]["losses"]:
+        fail(f"4m (a): the 1x1 mesh's losses {out['mesh']['losses']} differ "
+             f"from the unsharded {out['unsharded']['losses']}")
+
+    # (b) the Function against the composition, and the loss's time
+    params = T.cast_params(T.init_params(cfg, seed=0, device=device),
+                           L.dtype_of(cfg))
+    key = "embed" if cfg.tie_embeddings else "head"
+    head = {k: params[k] for k in ("final_norm", key)}
+    del params
+    n = B // M
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    h = torch.randn(n, S, cfg.d_model, generator=gen, device=dev).to(
+        L.dtype_of(cfg))
+    labels = batch["labels"][:n]
+    with torch.no_grad():
+        logits = T._unembed(head, cfg, h[:, :CE_CHUNK])
+    first = labels[:, :CE_CHUNK]
+
+    def ce_grad(fn):
+        x = logits.detach().requires_grad_(True)
+        loss = fn(x)
+        return loss.detach(), torch.autograd.grad(loss, x)[0]
+
+    def composition(x):
+        return cross_entropy(x, first)
+
+    def function(x):
+        return torch.mean(token_nll(x, first))
+
+    want, g_want = ce_grad(composition)
+    got, g_got = ce_grad(function)
+    loss_rel = abs(float(got) - float(want)) / abs(float(want))
+    grad_err = float((g_got - g_want).abs().max()) / float(
+        g_want.abs().max())
+    del g_got, g_want
+    if loss_rel > CE_TOL or grad_err > CE_TOL:
+        fail(f"4m (b): token_nll {float(got)!r} against cross_entropy "
+             f"{float(want)!r} ({loss_rel:.3e} relative), the logits' grad "
+             f"{grad_err:.3e} of the largest (limit {CE_TOL:.0e})")
+
+    def whole_loss(fn):
+        hh = h.detach().requires_grad_(True)
+        t = head[key].detach().requires_grad_(True)
+        loss = fn({**head, key: t}, cfg, hh, labels)
+        torch.autograd.grad(loss, (hh, t))
+
+    timer = cuda_ms if cuda else (lambda fn, reps: float("nan"))
+    out["check"] = dict(loss_rel_diff=loss_rel, grad_max_err=grad_err,
+                        logits_shape=list(logits.shape))
+    out["ms"] = dict(
+        chunk_function=timer(lambda: ce_grad(function), 10),
+        chunk_composition=timer(lambda: ce_grad(composition), 10),
+        microbatch_loss=timer(lambda: whole_loss(chunked_cross_entropy), 5),
+        microbatch_old_loss=timer(lambda: whole_loss(
+            lambda *a: old_chunked_cross_entropy(*a, CE_CHUNK)), 5))
+    ms = out["ms"]
+    log(f"4m (b) token_nll against cross_entropy on {tuple(logits.shape)} "
+        f"float32 logits: mean {loss_rel:.3e} relative, grad {grad_err:.3e} "
+        f"of the largest (limit {CE_TOL:.0e}); forward + backward "
+        f"{ms['chunk_function']:.4f} ms vs {ms['chunk_composition']:.4f} ms "
+        f"the composition; a microbatch's loss ({n} x {S} tokens, "
+        f"{S // CE_CHUNK} chunks with the unembed) {ms['microbatch_loss']:.4f}"
+        f" ms vs {ms['microbatch_old_loss']:.4f} ms before the split")
+    del head, h, logits
+    release(dev)
+    return out
+
+
 # ------------------------------------------------------------ phase 4k
 def mesh_writers(cfg, root: str, tally: WriteTally,
                  device: str = "cuda") -> dict:
@@ -3700,7 +3931,8 @@ def mesh_writers(cfg, root: str, tally: WriteTally,
 # ------------------------------------------------- the dry run vs the card
 def dryrun_cells(path: str) -> None:
     """Run ``measure_cell`` on a 1x1 fake mesh for 4h (a)'s, 4j (b)'s and
-    4l's train steps (their configs, depths, batch and one microbatch), and
+    4l's train steps (their configs, depths, batch and one microbatch) and
+    4m's (its config, ``CE_SHAPE`` and ``CE_MICROBATCHES``), and
     the ``PRODUCTION_MOE``, ``PRODUCTION_GQA`` and ``PRODUCTION_XLSTM``
     cells on 16x16 in three processes beside them (one fake process group
     a process); the records go to ``path``. The run starts it as a process
@@ -3723,12 +3955,16 @@ def dryrun_cells(path: str) -> None:
             maxtasksperchild=1) as pool:
         cells = pool.imap(_run_cell_args, [(arch, name, False, True)
                                            for arch, name in todo])
-        for phase, cfg in (("4h (a)", train_config()),
-                           ("4j (b)", moe_train_config()),
-                           ("4l", get_config(XLSTM_ARCH))):
+        ce_shape = ShapeConfig("train_4m", CE_SHAPE[1], CE_SHAPE[0],
+                               "train")
+        for phase, cfg, sc, mb in (
+                ("4h (a)", train_config(), shape, 1),
+                ("4j (b)", moe_train_config(), shape, 1),
+                ("4l", get_config(XLSTM_ARCH), shape, 1),
+                ("4m", ce_config(), ce_shape, CE_MICROBATCHES)):
             t0 = time.perf_counter()
-            rec = measure_cell(cfg, shape, (1, 1), ("data", "model"),
-                               microbatches=1)
+            rec = measure_cell(cfg, sc, (1, 1), ("data", "model"),
+                               microbatches=mb)
             rec["wall_s"] = time.perf_counter() - t0
             out[phase] = rec
         for (arch, name), rec in zip(todo, cells):
@@ -3751,7 +3987,7 @@ def dryrun_vs_card(proc, path: str, measured: dict) -> dict:
             proc.kill()
             proc.wait()
     if proc.returncode != 0 or not os.path.exists(path):
-        fail(f"the dry run of 4h (a), 4j (b) and 4l exited "
+        fail(f"the dry run of 4h (a), 4j (b), 4l and 4m exited "
              f"{proc.returncode}")
     with open(path) as f:
         recs = json.load(f)
@@ -3771,7 +4007,7 @@ def dryrun_vs_card(proc, path: str, measured: dict) -> dict:
                    dryrun_wall_s=rec["wall_s"])
         out[phase] = row
         log(f"dry run vs card, {phase} ({rec['arch']}, 1x1, "
-            f"{TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]} tokens, 1 microbatch; "
+            f"{rec['shape']}, {rec['microbatches']} microbatch(es); "
             f"{rec['wall_s']:.1f} s on meta): predicted peak "
             f"{pd['peak_hbm_bytes']} B (argument {pd['argument_bytes']}, "
             f"output {pd['output_bytes']}, temp {pd['temp_bytes']}, alias "
@@ -3790,11 +4026,29 @@ def dryrun_vs_card(proc, path: str, measured: dict) -> dict:
     return out
 
 
+def whole_vocab_gathers(rec: dict) -> list:
+    """A train cell's all-gathers of a loss chunk's logits with the whole
+    vocab (a data rank's rows x ``CE_CHUNK`` x V elements, or a last dim
+    of V): none where the loss keeps the vocab split over ``model``."""
+    sys.path.insert(0, SRC)
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import SHAPES_BY_NAME
+    from repro_torch.train.steps import CE_CHUNK
+    cfg, sc = get_config(rec["arch"]), SHAPES_BY_NAME[rec["shape"]]
+    if sc.kind != "train":
+        return []
+    V = cfg.vocab_size
+    rows = max(sc.global_batch // rec["microbatches"] // 16, 1)
+    return [s for s in rec["per_device"]["all_gather_shapes"]
+            if s[-1] == V or math.prod(s) == rows * CE_CHUNK * V]
+
+
 def production_moe(recs: dict) -> dict:
     """The ``PRODUCTION_MOE`` cells' dry-run records on 16x16: peak,
-    FLOPs and collective bytes by kind, per device, printed; a cell that
-    failed, or a ``prefill_32k`` peak above ``CARD_BYTES``, fails the
-    run."""
+    FLOPs and collective bytes by kind, per device, printed (the
+    ``train_4k`` cells beside the parent's, ``PRODUCTION_MOE_BEFORE``); a
+    cell that failed, a ``prefill_32k`` peak above ``CARD_BYTES``, or a
+    ``train_4k`` all-gather of whole-vocab logits fails the run."""
     out = {}
     for cell, rec in recs.items():
         if rec["status"] != "ok":
@@ -3807,11 +4061,24 @@ def production_moe(recs: dict) -> dict:
                          collective_bytes=coll,
                          all_gather_shapes=pd["all_gather_shapes"],
                          step_s=rec["step_s"])
+        before = ""
+        if cell in PRODUCTION_MOE_BEFORE:
+            peak0, flops0, coll0 = PRODUCTION_MOE_BEFORE[cell]
+            out[cell]["before"] = dict(peak_hbm_bytes=peak0, flops=flops0,
+                                       collective_bytes=coll0)
+            before = (f" (before the loss split: peak {peak0}, {flops0:.4e} "
+                      f"FLOPs, " + ", ".join(
+                          f"{k.replace('_', '-')} {v}"
+                          for k, v in coll0.items()) + ")")
         log(f"dry run {cell} on 16x16 (per device, no card): peak "
             f"{pd['peak_hbm_bytes']} B (argument {pd['argument_bytes']}, "
             f"temp {pd['temp_bytes']}), {pd['flops']:.4e} FLOPs, collective "
             f"bytes " + ", ".join(f"{k} {v}" for k, v in coll.items())
-            + f"; {rec['step_s']:.1f} s on meta")
+            + before + f"; {rec['step_s']:.1f} s on meta")
+        gathers = whole_vocab_gathers(rec)
+        if gathers:
+            fail(f"the dry run of {cell} all-gathers whole-vocab logits: "
+                 f"{gathers}")
         if cell.endswith("prefill_32k") and \
                 pd["peak_hbm_bytes"] > CARD_BYTES:
             fail(f"the dry run's peak for {cell} on 16x16, "
@@ -3824,8 +4091,9 @@ def production_gqa(recs: dict) -> dict:
     and collective bytes by kind, per device, printed beside the parent's
     (``PRODUCTION_GQA_BEFORE``); a cell that failed, a ``prefill_32k``
     peak above ``CARD_BYTES``, an all-gather of the whole (V, d) embedding
-    table, or a decode step that all-gathers ``DECODE_GATHER_LIMIT`` bytes
-    or more fails the run."""
+    table, a decode step that all-gathers ``DECODE_GATHER_LIMIT`` bytes
+    or more, or a ``train_4k`` peak of ``CE_PEAK_LIMIT`` or more or an
+    all-gather of its whole-vocab logits fails the run."""
     sys.path.insert(0, SRC)
     from repro_torch.configs import get_config
     out = {}
@@ -3856,6 +4124,14 @@ def production_gqa(recs: dict) -> dict:
         if table:
             fail(f"the dry run of {cell} all-gathers the whole embedding "
                  f"table: {table}")
+        gathers = whole_vocab_gathers(rec)
+        if gathers:
+            fail(f"the dry run of {cell} all-gathers whole-vocab logits: "
+                 f"{gathers}")
+        if rec["mode"] == "train" and pd["peak_hbm_bytes"] >= CE_PEAK_LIMIT:
+            fail(f"the dry run's peak for {cell} on 16x16, "
+                 f"{pd['peak_hbm_bytes']} B, is not under "
+                 f"{CE_PEAK_LIMIT:.1e} (the loss split over model)")
         if rec["mode"] == "prefill" and pd["peak_hbm_bytes"] > CARD_BYTES:
             fail(f"the dry run's peak for {cell} on 16x16, "
                  f"{pd['peak_hbm_bytes']} B, is over an 80 GB card")
@@ -4137,6 +4413,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     xlstm_on_mesh = xlstm_mesh()
     log(f"4l: {time.perf_counter() - t0:.1f} s")
+    # phase 4m: the train step's loss split over model, on a 1x1 mesh
+    t0 = time.perf_counter()
+    ce_on_mesh = ce_mesh()
+    log(f"4m: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     training["cpu_vs_card"] = [cpu_vs_card(cfg, tokens, label) for
                                label, cfg, tokens in card_vs_cpu_cases()]
@@ -4158,7 +4438,8 @@ def main(argv=None) -> int:
     dry_vs_card = dryrun_vs_card(dry, dry_path, {
         "4h (a)": mesh["memory"],
         "4j (b)": moe_mesh["train"]["mesh"]["memory"],
-        "4l": xlstm_on_mesh["mesh"]["memory"]})
+        "4l": xlstm_on_mesh["mesh"]["memory"],
+        "4m": ce_on_mesh["mesh"]["memory"]})
     log(f"dry run vs card: {time.perf_counter() - t0:.1f} s waited")
 
     launches = {name: main_path["launches"].get(name, 0)
@@ -4186,7 +4467,7 @@ def main(argv=None) -> int:
                            training=training, serving=serving, xlstm=xlstm,
                            moe=moe, moe_mesh=moe_mesh, mesh=mesh,
                            serve_mesh=serve_on_mesh, mesh_writers=writers,
-                           xlstm_mesh=xlstm_on_mesh,
+                           xlstm_mesh=xlstm_on_mesh, ce_mesh=ce_on_mesh,
                            dryrun_vs_card=dry_vs_card,
                            chaos=chaos_run), f,
                       indent=1)

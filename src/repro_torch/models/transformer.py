@@ -232,12 +232,24 @@ def _embed(params, cfg: ModelConfig, tokens, frontend_embeds=None):
     return x
 
 
-def _unembed(params, cfg: ModelConfig, x):
+def unembed_table(params, cfg: ModelConfig, dtype):
+    """The unembedding's weight, ``embed`` (tied) or ``head``, gathered over
+    the data axes (FSDP) and cast to ``dtype``: the loss makes it once and
+    hands it to each chunk's ``_unembed``, so that autograd keeps one copy
+    of it, not one a chunk."""
+    w = params["embed"] if cfg.tie_embeddings else params["head"]
+    return gathered(w).to(dtype)
+
+
+def _unembed(params, cfg: ModelConfig, x, table=None):
+    """Final norm, unembedding and ``final_softcap``: (B, S, d) -> (B, S, V)
+    float32 logits, at the layout the table gives them under a mesh (the
+    vocab split over ``model`` where the table splits it). ``table`` is
+    ``unembed_table(params, cfg, x.dtype)``, made here when not given."""
     h = L.rmsnorm(_tree_map(gathered, params["final_norm"]), x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = h @ gathered(params["embed"]).to(h.dtype).T
-    else:
-        logits = h @ gathered(params["head"]).to(h.dtype)
+    if table is None:
+        table = unembed_table(params, cfg, h.dtype)
+    logits = h @ (table.T if cfg.tie_embeddings else table)
     logits = logits.float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)

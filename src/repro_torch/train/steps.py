@@ -10,7 +10,9 @@ left attached to the state between steps; grads of bf16 params are bf16 as
 in the reference. Under a mesh the state and batch are DTensors:
 ``act_sharding`` (a ``sharding.partition.Layout``) is the residual stream's
 layout, which the forward redistributes to at the embed and after every
-block, and the logits to before the cross-entropy; ``grad_shardings`` (a
+block; the logits keep the table's split of the vocab over ``model``
+through the cross-entropy (``token_nll``), and each microbatch the batch's
+split over the data axes (``microbatches_of``); ``grad_shardings`` (a
 tree of layouts, the moments' under ZeRO-1) is where each grad is
 redistributed to before the update (ZeRO-2; without it, to its param's
 layout). The loss comes back whole on every rank.
@@ -33,38 +35,102 @@ from ..models import layers as L
 from ..models import transformer as T
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, apply_updates, init_state
-from ..sharding.dtensor import constrain, is_dtensor, keep_dims, on_local
+from ..sharding.dtensor import (axis_group, constrain, is_dtensor, keep_dims,
+                                like, mapped, model_axis, on_local,
+                                replicate)
 
 CE_CHUNK = 512  # sequence chunk for the unembed + cross-entropy loop
 
 
 def cross_entropy(logits, labels):
-    """logits (B,S,V) float32, labels (B,S) int -> scalar mean nll."""
+    """logits (B,S,V) float32, labels (B,S) int -> scalar mean nll: the
+    plain composition that ``token_nll`` is held against."""
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - gold)
 
 
+def _all_reduce(t, op: str, group):
+    """``t`` reduced by ``op`` over ``group`` (a functional collective, so
+    that the dry run counts it); ``t`` itself where ``group`` is None."""
+    if group is None:
+        return t
+    import torch.distributed._functional_collectives as fc
+    return fc.wait_tensor(fc.all_reduce(t, op, group))
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Per-token nll of (..., c) float32 logits, one rank's columns [lo, lo
+    + c) of a vocab split over the ranks of ``group`` (None: the whole
+    vocab): the row max, the sum of exponentials and the gold logit (the
+    rank's column where the label lies in its range, 0 elsewhere) are
+    all-reduced over the group, lse = max + log sum. The backward is
+    local: (softmax - one-hot of the rank's columns) x the nll's grad,
+    which every rank of the group holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, labels, lo: int, group):
+        m = _all_reduce(x.amax(dim=-1), "max", group)
+        s = _all_reduce(torch.exp(x - m[..., None]).sum(dim=-1), "sum",
+                        group)
+        local = labels.long() - lo
+        hit = (local >= 0) & (local < x.shape[-1])
+        idx = local.clamp(0, x.shape[-1] - 1)
+        gold = torch.where(hit, torch.gather(x, -1, idx[..., None])[..., 0],
+                           0.0)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(x, lse, idx, hit)
+        return lse - _all_reduce(gold, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse, idx, hit = ctx.saved_tensors
+        grad = torch.exp(x - lse[..., None])
+        grad.scatter_add_(-1, idx[..., None], -hit.to(grad.dtype)[..., None])
+        return grad.mul_(g[..., None]), None, None, None
+
+
+def token_nll(logits, labels):
+    """Per-token nll (B, S) of (B, S, V) float32 logits and (B, S) labels.
+    Under a mesh it runs on the logits' local blocks as they lie: where
+    the vocab is split over ``model`` (the table's rule), each rank's
+    V/tp columns with the three reductions over ``model``; elsewhere the
+    vocab made whole over ``model`` and the nll of each rank's rows. The
+    nll keeps the logits' split of the batch (and sequence) dims."""
+    if not is_dtensor(logits):
+        return _VocabNLL.apply(logits, labels, 0, None)
+    from torch.distributed.tensor import Replicate, Shard
+    ax = model_axis(logits)
+    model = None if ax is None else ax[0]
+    lay = tuple(p if p.is_shard() and (p.dim < 2 or j == model)
+                else Replicate() for j, p in enumerate(logits.placements))
+    lo, group = 0, None
+    if model is not None and lay[model] == Shard(2):
+        _, tp, r = ax
+        lo = r * -(-logits.shape[-1] // tp)     # torch.chunk's blocks
+        group = axis_group(logits, model)
+    rows = mapped(lay, {0: 0, 1: 1})
+    return on_local(lambda x, y: _VocabNLL.apply(x, y, lo, group),
+                    (logits, like(labels, logits)), (lay, rows), rows)
+
+
 def chunked_cross_entropy(params, cfg: ModelConfig, h, labels,
-                          chunk: int = CE_CHUNK, act_sharding=None):
+                          chunk: int = CE_CHUNK):
     """Unembed + cross-entropy a sequence chunk at a time, so only
-    (B, chunk, V) float32 logits are live in the forward pass. Under a mesh
-    the logits take ``act_sharding`` (the vocab dim whole) first: the gold
-    logit's gather has no DTensor strategy on a split vocab."""
+    (B, chunk, V) float32 logits are live in the forward pass; the
+    unembedding's table is gathered and cast once for all chunks. Under a
+    mesh each chunk's logits keep the table's split of the vocab
+    (``token_nll``)."""
     B, S, _ = h.shape
-    if S <= chunk:
-        return cross_entropy(
-            constrain(T._unembed(params, cfg, h), act_sharding), labels)
-    if S % chunk:
+    if S > chunk and S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of {chunk}")
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for a in range(0, S, chunk):
-        logits = constrain(T._unembed(params, cfg, h[:, a:a + chunk]),
-                           act_sharding)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, a:a + chunk].long()[..., None])[..., 0]
-        total = total + torch.sum(lse - gold)
+    step = min(S, chunk)
+    table = T.unembed_table(params, cfg, h.dtype)
+    total = None
+    for a in range(0, S, step):
+        logits = T._unembed(params, cfg, h[:, a:a + step], table)
+        part = torch.sum(token_nll(logits, labels[:, a:a + step]))
+        total = part if total is None else total + part
     return total / (B * S)
 
 
@@ -75,8 +141,7 @@ def make_loss_fn(cfg: ModelConfig, act_sharding=None):
                            act_sharding=act_sharding)
         S = batch["labels"].shape[1]
         nll = chunked_cross_entropy(params, cfg, h[:, -S:, :],
-                                    batch["labels"],
-                                    act_sharding=act_sharding)
+                                    batch["labels"])
         loss = nll + cfg.router_aux_coef * aux
         return loss, {"nll": nll, "aux": aux}
     return loss_fn
@@ -108,13 +173,42 @@ def _whole(t):
     return t.full_tensor() if is_dtensor(t) else t
 
 
+def _split_as(t, ref):
+    """``t``, whole rows of DTensor ``ref``, laid out as ``ref`` where its
+    row count splits as evenly as ``ref``'s rows (each rank chunks its own
+    block out: nothing is moved), else left whole; ``t`` itself off a
+    mesh."""
+    if not is_dtensor(ref):
+        return t
+    mesh = ref.device_mesh
+    ways = 1
+    for i, p in enumerate(ref.placements):
+        if p.is_shard(0):
+            ways *= mesh.size(i)
+    want = ref.placements if t.shape[0] % ways == 0 else replicate(ref)
+    return t.redistribute(mesh, want)
+
+
+def microbatches_of(batch: dict, microbatches: int) -> list[dict]:
+    """The reference's contiguous microbatches of ``batch``: rows [m·n,
+    (m+1)·n) for n = B / microbatches. Under a mesh each leaf is made
+    whole once (one all-gather of the ids a step) and every microbatch
+    takes the batch's own layout again, so the lookup, the blocks and the
+    loss run on each rank's rows only."""
+    n = next(iter(batch.values())).shape[0] // microbatches
+    whole = {k: v.redistribute(v.device_mesh, replicate(v))
+             if is_dtensor(v) else v for k, v in batch.items()}
+    return [{k: _split_as(whole[k][m * n:(m + 1) * n], batch[k])
+             for k in batch} for m in range(microbatches)]
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
                     microbatches: int = 1, grad_shardings=None,
                     act_sharding=None):
     """fwd + bwd + AdamW. ``microbatches`` > 1 accumulates float32 grads
-    over that many slices of the batch, so live activations are
-    O(batch / microbatches). ``grad_shardings`` / ``act_sharding``: the
-    layouts under a mesh (module docstring)."""
+    over that many contiguous slices of the batch (``microbatches_of``),
+    so live activations are O(batch / microbatches). ``grad_shardings`` /
+    ``act_sharding``: the layouts under a mesh (module docstring)."""
     opt_cfg = opt_cfg or AdamWConfig()
     loss_fn = make_loss_fn(cfg, act_sharding=act_sharding)
 
@@ -147,13 +241,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
         if microbatches == 1:
             (loss, extras), grads = grad_fn(params, batch)
         else:
-            n = next(iter(batch.values())).shape[0] // microbatches
             g_acc = _unflat((k, place(k, torch.zeros_like(
                 p, dtype=torch.float32), p))
                 for k, p in tree_leaves_with_path(params))
             l_acc = a_acc = 0.0
-            for m in range(microbatches):
-                mb = {k: v[m * n:(m + 1) * n] for k, v in batch.items()}
+            for mb in microbatches_of(batch, microbatches):
                 (l, ex), g = grad_fn(params, mb)
                 for (_, acc), (_, gm) in zip(tree_leaves_with_path(g_acc),
                                              tree_leaves_with_path(g)):

@@ -1613,3 +1613,165 @@ def test_mesh_xlstm_on_four_cards(cuda, tmp_path):
           "over the largest value:", res["err"], "; a full-width group's "
           "forward + backward (8 x 255 tokens) on 1x4 vs one card:",
           {k: v for k, v in res.items() if k.endswith("_s")})
+
+
+def mesh_ce(meshes: dict, device: str = "cuda") -> dict:
+    """qwen2.5-3b's loss at full width and vocab (float32, tied table of
+    151936 x 2048, seeded hidden states of 4 x 1024 tokens, two chunks of
+    512) on each mesh of ``meshes`` ({name: mesh}) against the unsharded
+    loss on this rank's card: the loss within rtol 1e-5; each grad (of h,
+    of the table) within rtol 1e-5 and atol 1e-5 of its largest value, or
+    else no further from the float64 grad than the unsharded float32 grad
+    is (the float64 run: the same unsharded loss with h and the table in
+    float64, so its matmuls run in float64; ``_unembed`` rounds its logits
+    to float32). The h grad's matmul sums over the 151,936 vocab columns,
+    one term of a row (the label's) far above the rest: in float32 the
+    card's unsharded h grad lies 2.5e-5 of its largest value from the
+    float64 one, so no other order of that sum meets 1e-5 against it; the
+    vocab's split shortens each rank's sum. Also
+    ``max_memory_allocated`` over the loss + backward (less what was
+    allocated before it), on the card and on each mesh. {name: {"ok",
+    "errs": (loss, h grad, table grad) differences from the float32
+    unsharded over its largest value, "errs64": the same from the float64
+    run, "peak_bytes"}}, "unsharded" the float32 unsharded's. (``device=
+    "cpu"`` rehearses it on gloo ranks, at vocab 4096.)"""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import act_layout
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.partition import Partitioner, shard_tree
+    from repro_torch.train.steps import chunked_cross_entropy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = device == "cuda"
+    cfg = get_config("qwen2.5-3b")
+    if not cuda:
+        cfg = cfg.replace(vocab_size=4096)
+    B, S = 4, 1024
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda \
+        else torch.device("cpu")
+    full = T.init_params(cfg.replace(num_layers=1), seed=0, device=dev)
+    params = {k: full[k] for k in ("final_norm", "embed")}
+    del full
+    rng = np.random.default_rng(0)
+    h = torch.as_tensor(rng.standard_normal((B, S, cfg.d_model)),
+                        dtype=torch.float32, device=dev)
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             dtype=torch.int32, device=dev)
+
+    def run(p, hh, ll):
+        hh = hh.detach().requires_grad_(True)
+        t = p["embed"].detach().requires_grad_(True)
+        if cuda:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        loss = chunked_cross_entropy({**p, "embed": t}, cfg, hh, ll)
+        grads = torch.autograd.grad(loss, (hh, t))
+        peak = torch.cuda.max_memory_allocated() - before if cuda else 0
+        return [(g.full_tensor() if hasattr(g, "full_tensor") else g)
+                .detach() for g in (loss, *grads)], peak
+
+    def errs(got, want) -> list[float]:
+        return [float((g.double() - w.double()).abs().max()
+                      / w.double().abs().max()) for g, w in zip(got, want)]
+
+    want, peak0 = run(params, h, labels)
+    exact = run(T._tree_map(lambda t: t.double(), params), h.double(),
+                labels)[0]
+    out = {"unsharded": {"ok": True, "errs64": errs(want, exact),
+                         "peak_bytes": peak0}}
+    for name, mesh in meshes.items():
+        part = Partitioner(cfg, mesh)
+        act = act_layout(cfg, mesh, B)
+        got, peak = run(shard_tree(params, part.param_shardings(params)),
+                        act.distribute(h),
+                        part.tokens_sharding(B).distribute(labels))
+        ok = bool(torch.allclose(got[0], want[0], rtol=1e-5, atol=0.0))
+        for i in (1, 2):
+            top = float(want[i].abs().max())
+            ok &= bool(torch.allclose(got[i], want[i], rtol=1e-5,
+                                      atol=1e-5 * top)) or \
+                errs(got[i:i + 1], exact[i:i + 1]) <= \
+                errs(want[i:i + 1], exact[i:i + 1])
+        out[name] = {"ok": ok, "errs": errs(got, want),
+                     "errs64": errs(got, exact), "peak_bytes": peak}
+    return out
+
+
+def test_mesh_cross_entropy_on_the_card(cuda_mesh):
+    """``mesh_ce`` on a 1x1 CUDA mesh: the loss's Function with a one-rank
+    vocab group, held to the unsharded loss on the card."""
+    res = mesh_ce({"1x1": cuda_mesh})
+    assert res["1x1"]["ok"], res
+    print("1x1 loss split over model (qwen2.5-3b, full vocab):", res)
+
+
+MESH_CE = r"""
+import json, os, sys
+from datetime import timedelta
+import torch.distributed as dist
+rank, out, port = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sys.path.insert(0, os.path.dirname(os.path.abspath(sys.argv[4])))
+from test_torch_cuda import mesh_ce
+from repro_torch.launch.mesh import make_host_mesh
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=4,
+                        timeout=timedelta(seconds=300))
+res = mesh_ce({"1x4": make_host_mesh(1, 4), "4x1": make_host_mesh(4, 1)})
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+print("MESH-CE-OK")
+"""
+
+
+def test_mesh_cross_entropy_on_four_cards(cuda, tmp_path):
+    """``mesh_ce`` on a 1x4 and a 4x1 mesh of four cards (NCCL, one process
+    per card): on 1x4 each card its 37,984 of the 151,936 vocab columns,
+    the max, the sum of exponentials and the gold logit all-reduced; on
+    4x1 each card its row of the batch, the vocab whole. The loss and the
+    grads against the unsharded loss on one card (``mesh_ce``'s
+    tolerances), and each card's memory
+    over the loss + backward printed beside one card's. Skips with fewer
+    than four cards."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards (one process per card)")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MESH_CE, str(r), str(tmp_path),
+         str(port), __file__], env=dict(
+             os.environ, OMP_NUM_THREADS="1",
+             PYTHONPATH=os.path.join(root, "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0] * 4, \
+        [log[-3000:] for log in logs]
+    for r in range(4):
+        with open(tmp_path / f"rank{r}.json") as f:
+            res = json.load(f)
+        assert res["1x4"]["ok"] and res["4x1"]["ok"], (r, res)
+        print(f"four-card loss split over model, rank {r}: (loss, h grad, "
+              f"table grad) differences over the largest value, from one "
+              f"card's float32 1x4 {res['1x4']['errs']}, 4x1 "
+              f"{res['4x1']['errs']}; from its float64 1x4 "
+              f"{res['1x4']['errs64']}, 4x1 {res['4x1']['errs64']}, one "
+              f"card {res['unsharded']['errs64']}; memory over the loss + "
+              f"backward "
+              f"1x4 {res['1x4']['peak_bytes']} B, 4x1 "
+              f"{res['4x1']['peak_bytes']} B, one card "
+              f"{res['unsharded']['peak_bytes']} B")
