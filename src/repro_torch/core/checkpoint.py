@@ -61,7 +61,7 @@ from .pipeline import (HostStaging, RestorePipeline, RestoreTask,
                        SnapshotPipeline, build_save_puts, dtensor_window,
                        host_bytes, host_resident, is_dtensor,
                        iter_host_shards)
-from .resharding import assemble, dedupe_shards, plan_window
+from .resharding import WindowAssembler, dedupe_shards, plan_window
 from .serialization import (LEAN_KEY, deserialize_lean, dtype_name,
                             extract_tensors, is_float_kind, iter_stubs,
                             np_to_torch, reinsert_tensors, serialize_lean,
@@ -216,6 +216,8 @@ class SaveMetrics:
     fingerprint_seconds: float = 0.0  # delta: digest every chunk (worker-side)
     diff_seconds: float = 0.0      # delta: diff digests + build chunk refs
     d2h_seconds: float = 0.0       # device→host (staging copy when streaming)
+    stage_copy_seconds: float = 0.0  # streaming: memcpy into pooled buffers
+    stage_crc_seconds: float = 0.0   # streaming: CRC32 of the put payloads
     d2h_bytes: int = 0             # delta fp128: device bytes that crossed —
     #                                digest tables + dirty-chunk gathers only
     #                                (0 for host-resident sources, whose
@@ -258,9 +260,11 @@ class RestoreMetrics:
     read_stall_seconds: float = 0.0  # consumer blocked waiting on extents
     decode_seconds: float = 0.0     # int8 → float dequantization
     assemble_seconds: float = 0.0
-    h2d_seconds: float = 0.0        # placement of assembled windows; the
-    #                                 host→device copy itself happens as each
-    #                                 extent is fed and counts under assemble
+    h2d_seconds: float = 0.0        # host→device copies as each extent is
+    #                                 fed (not counted under assemble)
+    h2d_bytes: int = 0              # bytes those copies moved
+    read_copy_seconds: float = 0.0  # streaming: memcpy out of read buffers
+    read_crc_seconds: float = 0.0   # streaming: CRC32 of the landed extents
     prefetch_seconds: float = 0.0   # tier-1 → tier-0 extent staging
     end_to_end_seconds: float = 0.0
     peak_staged_bytes: int = 0      # max host bytes staged by the read stream
@@ -632,6 +636,8 @@ class CheckpointManager:
         metrics.flush_seconds = trace.clock() - t1
         st = self.engine.last_save_stats
         metrics.d2h_seconds = st.copy_seconds + st.alloc_seconds
+        metrics.stage_copy_seconds = st.copy_seconds
+        metrics.stage_crc_seconds = getattr(st, "crc_seconds", 0.0)
         if plan is not None:
             manifest = delta_mod.apply_plan(manifest, plan)
             metrics.written_bytes = plan.written_bytes
@@ -1119,7 +1125,12 @@ class CheckpointManager:
                 return cache[k]
         else:
             lookup = lambda sh: extent_bytes[(rec.key, sh.path, sh.offset)]
-        return assemble(rec, windows[0][0], lookup, device)
+        asm = WindowAssembler(rec, windows[0][0], device)
+        for sh in asm.pending_shards():
+            asm.feed(sh, lookup(sh))
+        metrics.h2d_seconds += asm.h2d_seconds
+        metrics.h2d_bytes += asm.h2d_bytes
+        return asm.result()
 
     def _check_crc(self, expect, raw, key, path: str = "",
                    offset: int = 0) -> None:

@@ -28,12 +28,18 @@ degenerate client that gets every request and drains):
     are bounded by ``config.inflight_bytes`` (StageBudget backpressure),
   · CRCs are verified incrementally against the manifest as extents land
     (``ChecksumError`` names the key and file offset).
+
+Each memcpy into or out of a pooled buffer and each CRC32 is a span on the
+tracer's clock (``stage.copy`` / ``stage.crc`` in ``put``, ``read.copy`` /
+``read.crc`` as extents land), timed by the stamps that feed the stream's
+``AggIOStats`` copy and CRC seconds.
 """
 
 from __future__ import annotations
 
 import zlib
 from collections import deque
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -44,6 +50,13 @@ from ..io_engine import IORequest, OP_READ, OP_WRITE
 from ..manifest import Manifest
 from .base import (ChecksumError, CREngine, IOStats, ReadReq, ReadStream,
                    SaveItem, SaveSpec, SaveStream, as_u8, spec_of)
+
+
+@dataclass
+class AggIOStats(IOStats):
+    """``IOStats`` plus the CRC32 time: the save's over each put payload,
+    the restore's over each landed extent (0 with checksums off)."""
+    crc_seconds: float = 0.0
 
 
 class _Group:
@@ -75,7 +88,7 @@ class _AggSaveStream(SaveStream):
         self.cfg = cfg = eng.config
         self.step, self.num_ranks = step, num_ranks
         self.specs = list(specs)
-        self.stats = IOStats()
+        self.stats = AggIOStats()
         self.t0 = trace.clock()
         self.plan = eng._plan(self.specs, rank, rank_totals)
         self.extents = {e.key: e for e in self.plan.extents}
@@ -161,7 +174,11 @@ class _AggSaveStream(SaveStream):
         e = self.extents[key]
         g = self._group_of[key]
         if cfg.checksum:
+            t0 = trace.clock()
             self.crcs[key] = zlib.crc32(mv, self.crcs.get(key, 0)) & 0xFFFFFFFF
+            t1 = trace.clock()
+            self.stats.crc_seconds += t1 - t0
+            trace.complete("stage.crc", t0, t1, nbytes=mv.nbytes)
         if g.large:
             expect = self._pos.get(key, 0)
             if pos != expect:
@@ -182,6 +199,7 @@ class _AggSaveStream(SaveStream):
                 tc = trace.clock()
                 self.stats.alloc_seconds += tb - ta
                 self.stats.copy_seconds += tc - tb
+                trace.complete("stage.copy", tb, tc, nbytes=n)
                 self._submit(self.fds[e.path], e.offset + pos + p, buf,
                              align_up(n, cfg.align))
                 p += n
@@ -203,7 +221,9 @@ class _AggSaveStream(SaveStream):
         if mv.nbytes:
             tb = trace.clock()
             g.buf.view(e.offset - first.offset, e.nbytes)[:] = mv
-            self.stats.copy_seconds += trace.clock() - tb
+            tc = trace.clock()
+            self.stats.copy_seconds += tc - tb
+            trace.complete("stage.copy", tb, tc, nbytes=e.nbytes)
         g.filled += e.nbytes
         g.seen += 1
         if g.seen == len(g.extents) and not g.submitted:
@@ -299,7 +319,7 @@ class _AggReadStream(ReadStream):
                  reqs: list[ReadReq], crcs: dict[str, int] | None):
         self.eng = eng
         self.cfg = cfg = eng.config
-        self.stats = IOStats()
+        self.stats = AggIOStats()
         self.t0 = trace.clock()
         self.extents: dict[str, Extent] = {}
         for r in reqs:
@@ -425,7 +445,9 @@ class _AggReadStream(ReadStream):
             self.budget.sub(buf.nbytes)
             buf.release()
             self.budget.add(landed)
-            self.stats.copy_seconds += trace.clock() - tb
+            tc = trace.clock()
+            self.stats.copy_seconds += tc - tb
+            trace.complete("read.copy", tb, tc, nbytes=landed)
             for e in unit.group:     # verify AFTER the books are settled
                 self._verify_whole(e)
         else:
@@ -440,7 +462,9 @@ class _AggReadStream(ReadStream):
             self._left[unit.key] -= unit.n
             if self._left[unit.key] == 0:
                 self._done[unit.key] = self._dest.pop(unit.key)
-            self.stats.copy_seconds += trace.clock() - tb
+            tc = trace.clock()
+            self.stats.copy_seconds += tc - tb
+            trace.complete("read.copy", tb, tc, nbytes=unit.n)
             self._advance_crc(e, dest, unit.pos, unit.n)
 
     # ------------------------------------------------------ CRC verification
@@ -448,7 +472,11 @@ class _AggReadStream(ReadStream):
         expect = self.crcs.get(e.key)
         if expect is None:
             return
+        t0 = trace.clock()
         got = zlib.crc32(self._done[e.key]) & 0xFFFFFFFF
+        t1 = trace.clock()
+        self.stats.crc_seconds += t1 - t0
+        trace.complete("read.crc", t0, t1, nbytes=e.nbytes)
         if got != expect:
             raise ChecksumError(e.key, e.path, e.offset, expect, got)
 
@@ -461,10 +489,15 @@ class _AggReadStream(ReadStream):
             return
         st = self._crc_state.setdefault(e.key, [0, 0, {}])
         st[2][pos] = n
+        t0, p0 = trace.clock(), st[1]
         while st[1] in st[2]:
             m = st[2].pop(st[1])
             st[0] = zlib.crc32(dest[st[1]:st[1] + m], st[0]) & 0xFFFFFFFF
             st[1] += m
+        if st[1] > p0:
+            t1 = trace.clock()
+            self.stats.crc_seconds += t1 - t0
+            trace.complete("read.crc", t0, t1, nbytes=st[1] - p0)
         if st[1] == e.nbytes and st[0] != expect:
             raise ChecksumError(e.key, e.path, e.offset, expect, st[0])
 

@@ -318,7 +318,7 @@ class RestorePipeline:
     stages overlap per tensor: while the io backend reads the extents of
     tensor k+1, the consumer thread dequantizes (on the card) and
     window-assembles tensor k into its device tensor (the H2D copy happens
-    as each extent is fed, so it is timed under assemble). Engines without
+    as each extent is fed: ``h2d``, inside ``assemble``). Engines without
     a native stream degrade to the buffered batch path behind the same API
     (decode/assemble/H2D still pipeline against each other, reads do not).
     """
@@ -339,14 +339,17 @@ class RestorePipeline:
         exactly these from the remote tier); ``crcs`` maps request keys to
         expected crc32s for in-stream verification.
         ``metrics`` (RestoreMetrics-shaped) gains stall/decode/assemble/h2d
-        seconds and the engine's peak staged bytes."""
+        seconds, the H2D bytes, the read stream's copy and CRC seconds and
+        its peak staged bytes."""
         from . import quant_codec
         if place is None:
             place = lambda task, windows: next(iter(windows.values()))
         if metrics is None:
             metrics = SimpleNamespace(
                 read_seconds=0.0, read_stall_seconds=0.0, decode_seconds=0.0,
-                assemble_seconds=0.0, h2d_seconds=0.0, peak_staged_bytes=0)
+                assemble_seconds=0.0, h2d_seconds=0.0, h2d_bytes=0,
+                read_copy_seconds=0.0, read_crc_seconds=0.0,
+                peak_staged_bytes=0)
 
         # Plan: per task, one assembler per distinct window and the ordered
         # set of extents feeding them (a resharded restore reads a subset of
@@ -434,14 +437,16 @@ class RestorePipeline:
                     t_asm = trace.clock()
                     metrics.assemble_seconds += t_asm - t2
                     trace.complete("assemble", t2, t_asm, nbytes=sh.nbytes)
+                for asm in asms.values():     # h2d spans lie inside assemble
+                    metrics.h2d_seconds += asm.h2d_seconds
+                    metrics.h2d_bytes += asm.h2d_bytes
+                    metrics.assemble_seconds -= asm.h2d_seconds
                 windows = {wkey: asm.result() for wkey, asm in asms.items()}
-                t3 = trace.clock()
                 out[task.key] = place(task, windows)
-                t4 = trace.clock()
-                metrics.h2d_seconds += t4 - t3
-                trace.complete("h2d", t3, t4, tier="device")
             stats = stream.end_restore()
             metrics.read_seconds = stats.seconds
+            metrics.read_copy_seconds = stats.copy_seconds
+            metrics.read_crc_seconds = getattr(stats, "crc_seconds", 0.0)
             metrics.peak_staged_bytes = stats.peak_staged_bytes
             return out
         except BaseException:

@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import trace
 from .manifest import ShardEntry, TensorRecord
 from .serialization import torch_dtype
 
@@ -108,7 +109,9 @@ class WindowAssembler:
     device here, decoded bytes already on the device are copied within it),
     so window assembly overlaps the reads still in flight. Coverage is
     validated up front by ``plan_window``; ``done`` flips once every
-    contributing extent has been fed.
+    contributing extent has been fed. Each host-to-device copy is an
+    ``h2d`` span (tier ``device``), its seconds and bytes summed in
+    ``h2d_seconds`` and ``h2d_bytes``.
     """
 
     def __init__(self, record: TensorRecord, wanted: Index, device="cpu"):
@@ -117,6 +120,8 @@ class WindowAssembler:
         self.dtype = record_dtype(record)
         self.out = torch.empty(window_shape(wanted), dtype=self.dtype,
                                device=device)
+        self.h2d_seconds = 0.0
+        self.h2d_bytes = 0
         self._by_extent: dict[tuple[str, int], list[ReadPiece]] = {}
         for piece in plan_window(record, wanted):
             self._by_extent.setdefault(
@@ -142,8 +147,17 @@ class WindowAssembler:
             raw = torch.from_numpy(np.require(raw.reshape(-1).view(np.uint8),
                                               requirements="W"))
         arr = raw.reshape(-1)[:n].view(self.dtype).reshape(sh_shape)
+        h2d = arr.device.type == "cpu" and self.out.device.type != "cpu"
         for piece in pieces:
-            self.out[piece.dst].copy_(arr[piece.src])
+            dst = self.out[piece.dst]
+            t0 = trace.clock()
+            dst.copy_(arr[piece.src])  # from pageable memory: the host waits
+            if h2d:
+                t1 = trace.clock()
+                nbytes = dst.numel() * self.dtype.itemsize
+                self.h2d_seconds += t1 - t0
+                self.h2d_bytes += nbytes
+                trace.complete("h2d", t0, t1, tier="device", nbytes=nbytes)
 
     @property
     def done(self) -> bool:

@@ -5,7 +5,16 @@ Counterpart of ``repro/train/trainer.py`` on this package's
 ``{"train": train state, "data": pipeline state}`` (so a run checkpointed by
 either package resumes in the other), auto-resume from the latest step,
 checkpoint-every-N with versioned GC, and the same report (``metrics_log``,
-the metrics registry, the save stall attribution when tracing is on).
+the save stall attribution when tracing is on).
+
+With the tracer on (``TrainerConfig.trace``, or ``trace.enable()`` by the
+caller) the loop records host spans ``train.batch``, ``train.snapshot_wait``
+(the first wait after a save), ``train.step`` (the batch's upload, the
+step and its logged metrics' read), ``train.save`` (the blocking call) and
+``train.restore``; on CUDA also a ``train.step`` span of tier ``device``
+a step, from two events around the upload and the step, put on the
+tracer's clock through an anchor event stamped after one synchronise at
+the start of ``run()``.
 
 The train step updates the state in place, so before every step the loop
 waits until an in-flight async save holds its snapshot
@@ -45,7 +54,6 @@ as any group checkpoint does.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 
 import torch
@@ -164,14 +172,6 @@ class Trainer:
         self.on_log = None               # called with each logged dict
         self.save_log: list = []         # SaveMetrics of every save, in order
         self.restore_attr: dict = {}
-        # one queryable tree over every Stats producer in the stack
-        self.registry = trace.MetricsRegistry()
-        if self.ckpt is not None:
-            self.registry.register(
-                "save", lambda: getattr(self.ckpt, "last_save_metrics", None))
-            self.registry.register(
-                "restore",
-                lambda: getattr(self.ckpt, "last_restore_metrics", None))
 
     # ------------------------------------------------------------------ state
     def _mesh_layouts(self) -> None:
@@ -215,12 +215,13 @@ class Trainer:
             return self.init_state(), 0
         template = init_train_state(self.cfg, seed=self.tcfg.seed,
                                     device="meta")
-        t0 = time.perf_counter()
-        restored = self.ckpt.restore(
-            state_template=self._full_state(template), step=latest,
-            shardings=self.restore_shardings())
-        self._sync()
-        restore_wall = time.perf_counter() - t0
+        t0 = trace.clock()
+        with trace.span("train.restore", attrs={"step": latest}):
+            restored = self.ckpt.restore(
+                state_template=self._full_state(template), step=latest,
+                shardings=self.restore_shardings())
+            self._sync()
+        restore_wall = trace.clock() - t0
         state = restored["train"]
         self.pipeline.load_state_dict(restored["data"])
         # stall attribution: where the resume time went (streaming restores
@@ -268,45 +269,66 @@ class Trainer:
         step_fn = make_train_step(self.cfg, self.opt_cfg,
                                   grad_shardings=self.grad_shardings,
                                   act_sharding=self.act_sharding)
+        traced = trace.is_enabled()
+        device_steps = _DeviceSteps(self.device) \
+            if traced and self.device.type == "cuda" else None
         ckpt_block_s = 0.0
         snapshot_wait_s = 0.0            # the wait_snapshotted() part of it
         ckpt_reported_block_s = 0.0      # sum of SaveMetrics.blocking_seconds
-        t_start = time.perf_counter()
+        saved = False                    # a save since the last step
+        t_start = trace.clock()
         for step in range(start_step, self.tcfg.steps):
-            batch = {k: torch.as_tensor(v, device=self.device)
-                     for k, v in self.pipeline.batch_at(step).items()}
-            if self.mesh is not None:
-                batch = {k: self.batch_layouts[k].distribute(v)
-                         for k, v in batch.items()}
+            attrs = {"step": step} if traced else None
+            with trace.span("train.batch", attrs=attrs):
+                host_batch = self.pipeline.batch_at(step)
             if self.ckpt is not None:
                 # the step updates the state in place, which an in-flight
                 # pipelined save may still be reading — barrier on the
                 # staged snapshot (NOT the flush), and count it as stall
-                t0 = time.perf_counter()
+                t0 = trace.clock()
                 self.ckpt.wait_snapshotted()
-                waited = time.perf_counter() - t0
-                ckpt_block_s += waited
-                snapshot_wait_s += waited
-            t_step = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            self.pipeline.state.step = step + 1
-            if self.tcfg.log_every and step % self.tcfg.log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                m["step"] = step
-                # reading the metrics waited for the step: host wall of it
-                m["seconds"] = time.perf_counter() - t_step
-                self.metrics_log.append(m)
-                if self.on_log is not None:
-                    self.on_log(m)
+                t1 = trace.clock()
+                ckpt_block_s += t1 - t0
+                snapshot_wait_s += t1 - t0
+                if saved:
+                    trace.complete("train.snapshot_wait", t0, t1,
+                                   attrs=attrs)
+                    saved = False
+            m = None
+            with trace.span("train.step", attrs=attrs):
+                if device_steps is not None:
+                    device_steps.begin()
+                batch = {k: torch.as_tensor(v, device=self.device)
+                         for k, v in host_batch.items()}
+                if self.mesh is not None:
+                    batch = {k: self.batch_layouts[k].distribute(v)
+                             for k, v in batch.items()}
+                t_step = trace.clock()
+                state, metrics = step_fn(state, batch)
+                if device_steps is not None:
+                    device_steps.end(step)
+                self.pipeline.state.step = step + 1
+                if self.tcfg.log_every and step % self.tcfg.log_every == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m["step"] = step
+                    # reading the metrics waited for the step: host wall
+                    m["seconds"] = trace.clock() - t_step
+                    self.metrics_log.append(m)
+            if m is not None and self.on_log is not None:
+                self.on_log(m)
             if (self.ckpt is not None and self.tcfg.ckpt_every
                     and (step + 1) % self.tcfg.ckpt_every == 0):
-                t0 = time.perf_counter()
-                sm = self.ckpt.save(step + 1, self._full_state(state))
-                ckpt_block_s += time.perf_counter() - t0
+                t0 = trace.clock()
+                with trace.span("train.save", attrs=attrs):
+                    sm = self.ckpt.save(step + 1, self._full_state(state))
+                ckpt_block_s += trace.clock() - t0
                 self.save_log.append(sm)
                 ckpt_reported_block_s += sm.blocking_seconds
+                saved = True
         self._sync()
-        wall = time.perf_counter() - t_start
+        wall = trace.clock() - t_start
+        if device_steps is not None:
+            device_steps.record()
         if self.ckpt is not None:
             self.ckpt.wait()
         out = {"state": state, "wall_seconds": wall,
@@ -339,3 +361,41 @@ class Trainer:
     def close(self):
         if self.ckpt is not None:
             self.ckpt.close()
+
+
+class _DeviceSteps:
+    """Each step's device interval as a ``train.step`` span (tier
+    ``device``) on the tracer's clock.
+
+    One synchronise, then an anchor event on the current stream stamped
+    with ``trace.clock()``: the stream is idle, so the card passes the
+    anchor at that instant. Two events a step bracket its work in stream
+    order; once the run has synchronised, each pair's times since the
+    anchor place the step on the clock. No other synchronise is added."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.current_stream(device)
+        torch.cuda.synchronize(device)
+        self.anchor = self._event()
+        self.c0 = trace.clock()
+        self.steps: list = []            # (step, start event, end event)
+        self._start = None
+
+    def _event(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self.stream)
+        return ev
+
+    def begin(self) -> None:
+        self._start = self._event()
+
+    def end(self, step: int) -> None:
+        self.steps.append((step, self._start, self._event()))
+
+    def record(self) -> None:
+        """The spans, once the run has synchronised."""
+        for step, a, b in self.steps:
+            trace.complete(
+                "train.step", self.c0 + self.anchor.elapsed_time(a) / 1e3,
+                self.c0 + self.anchor.elapsed_time(b) / 1e3, tier="device",
+                attrs={"step": step})

@@ -5,6 +5,7 @@ what they were in the JAX package."""
 import filecmp
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -93,10 +94,11 @@ def test_a_dtype_without_a_numpy_name_is_refused(tmp_path):
 
 # the layers carried from repro.core, and the linter from repro.analysis
 # (named relative to core), without a change (their copies must not drift;
-# edited carries — faults, resharding, remote — are held by behaviour)
+# edited carries — faults, resharding, remote, engines/aggregated — are
+# held by behaviour)
 CARRIED = ["trace.py", "buffers.py", "uring.py", "manifest.py",
            "io_engine.py", "aggregation.py", "engines/base.py",
-           "engines/aggregated.py", "engines/__init__.py",
+           "engines/__init__.py",
            "engines/datastates.py", "engines/snapshot.py",
            "engines/torchsave.py", "engines/remote.py", "tiered.py",
            "multilevel.py", "../analysis/crlint.py"]
@@ -107,3 +109,64 @@ def test_carried_layer_is_the_reference_copy(name):
     ref = os.path.join(ROOT, "src", "repro", "core", name)
     port = os.path.join(ROOT, "src", "repro_torch", "core", name)
     assert filecmp.cmp(ref, port, shallow=False)
+
+
+def _engine_items(save_item):
+    """Small objects that coalesce into one write, one object over
+    ``chunk_bytes`` (streamed in chunks), and a blob."""
+    rng = np.random.default_rng(7)
+    items = [save_item(f"s{i}", a, "float32", a.shape) for i, a in
+             enumerate(rng.standard_normal(n).astype(np.float32)
+                       for n in (3, 1000, 4096, 17))]
+    big = rng.integers(0, 256, 5 * 65536 + 123, dtype=np.uint8)
+    return items + [save_item("big", big, "uint8", big.shape),
+                    save_item("blob", b"lean" * 33, is_blob=True)]
+
+
+def _engine_crcs(manifest) -> dict:
+    out = {k: b.crc32 for k, b in manifest.blobs.items()}
+    for k, rec in manifest.tensors.items():
+        out.update({f"{k}@{sh.offset}": sh.crc32 for sh in rec.shards})
+    return out
+
+
+@pytest.mark.parametrize("backend", ["posix", "threadpool"])
+def test_aggregated_engine_matches_the_reference(tmp_path, backend):
+    """The port's aggregated engine (its staging spanned) against the
+    reference's: with checksums on, the same files byte for byte and the
+    same CRCs, and each engine reads the other's files back exactly,
+    verifying the CRCs as the extents land."""
+    from repro.core import engines as ref_eng
+    from repro_torch.core import engines as port_eng
+    pkgs = {"ref": ref_eng, "port": port_eng}
+    kw = dict(backend=backend, direct=False, checksum=True,
+              chunk_bytes=64 << 10, coalesce_bytes=256 << 10)
+    saved = {}
+    for name, pkg in pkgs.items():
+        eng = pkg.ENGINES["aggregated"](pkg.EngineConfig(**kw))
+        items = _engine_items(pkg.SaveItem)
+        saved[name] = eng.save(str(tmp_path / name), items, step=1)
+    ref_m, port_m = saved["ref"], saved["port"]
+    assert _engine_crcs(port_m) == _engine_crcs(ref_m)
+    assert None not in _engine_crcs(port_m).values()
+    files = sorted(os.listdir(tmp_path / "ref" / "data"))
+    assert files == sorted(os.listdir(tmp_path / "port" / "data"))
+    for f in files:
+        assert filecmp.cmp(tmp_path / "ref" / "data" / f,
+                           tmp_path / "port" / "data" / f, shallow=False)
+    want = {it.key: bytes(memoryview(it.data).cast("B"))
+            for it in _engine_items(port_eng.SaveItem)}
+    for reader, writer in (("port", "ref"), ("ref", "port")):
+        pkg, m = pkgs[reader], saved[writer]
+        reqs = [pkg.ReadReq(k, b.path, b.offset, b.nbytes)
+                for k, b in m.blobs.items()]
+        crcs = {k: b.crc32 for k, b in m.blobs.items()}
+        for k, rec in m.tensors.items():
+            (sh,) = rec.shards
+            reqs.append(pkg.ReadReq(k, sh.path, sh.offset, sh.nbytes))
+            crcs[k] = sh.crc32
+        eng = pkg.ENGINES["aggregated"](pkg.EngineConfig(**kw))
+        stream = eng.begin_restore(str(tmp_path / writer), reqs, crcs=crcs)
+        got = {r.key: stream.get(r.key).tobytes() for r in reqs}
+        stream.end_restore()
+        assert got == want, (reader, writer)

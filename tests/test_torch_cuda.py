@@ -827,6 +827,51 @@ def test_two_level_trainer_on_the_card_resumes_after_node_loss(cuda,
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
+def test_trainer_spans_on_the_card(cuda, tmp_path):
+    """With the tracer on, a narrow float32 Trainer on the card records one
+    device-tier ``train.step`` a step, on the tracer's clock within its
+    host ``train.step`` (the upload, the step and the loss's read) widened
+    by 1 ms; a second Trainer resumes the async save and its ``h2d`` spans
+    carry the restored bytes, also in ``RestoreMetrics.h2d_bytes``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import trace
+    from repro_torch.data import DataConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config("qwen2.5-3b").scaled_down(layers=2, width_div=8,
+                                               vocab=512) \
+        .replace(dtype="float32")
+
+    def run(steps):
+        t = Trainer(cfg, TrainerConfig(
+            steps=steps, ckpt_every=2, ckpt_dir=str(tmp_path), log_every=1),
+            data_cfg=DataConfig(cfg.vocab_size, 65, 4, seed=0),
+            engine_config=EngineConfig(backend="posix", direct=False),
+            device="cuda")
+        trace.enable()
+        try:
+            out = t.run()
+            return out, trace.drain(), t.ckpt.last_restore_metrics
+        finally:
+            trace.disable()
+            t.close()
+
+    out, events, _ = run(3)
+    host = {e.attrs["step"]: e for e in events
+            if e.name == "train.step" and e.tier == "host"}
+    dev = {e.attrs["step"]: e for e in events
+           if e.name == "train.step" and e.tier == "device"}
+    assert sorted(dev) == sorted(host) == [0, 1, 2]
+    for k, d in dev.items():
+        assert host[k].t0 - 1e-3 <= d.t0 < d.t1 <= host[k].t1 + 1e-3, k
+    resumed, events, rm = run(4)
+    assert resumed["start_step"] == 2
+    h2d = [e for e in events if e.name == "h2d"]
+    assert h2d and all(e.tier == "device" for e in h2d)
+    assert sum(e.nbytes for e in h2d) == rm.h2d_bytes == rm.read_bytes
+    assert rm.h2d_seconds == pytest.approx(sum(e.dur for e in h2d),
+                                           rel=1e-9, abs=1e-12)
+
+
 def test_mesh_writer_threads_on_the_card_match_cpu(cuda_mesh, tmp_path):
     """``Trainer(mesh=, ckpt_writers=4)`` on a 1x1 CUDA mesh (its commits
     over the Trainer's gloo group), narrow float32 xlstm-350m: both runs
